@@ -1,0 +1,478 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``).
+
+Run from the repository root on a machine with one NVIDIA Hopper card
+and the CUDA toolkit:
+
+    python3 chip_smoke.py
+
+Phases, each printed as it runs:
+
+1. build   — compile ``src/repro_torch/kernels/csrc/*.cu`` with nvcc for
+             sm_90a; print the build time, ptxas' register counts, and
+             the card's name and power limit.
+2. kernels — hold each CUDA kernel against its plain PyTorch version on
+             the card at the process phase's shapes (B = 1024 rows,
+             N = 128 knots, M in {128, 256, 512, 1024}; the AGL gather
+             on the 30-arc-second GLOBE-resolution DEM, 3121 x 7081 f32)
+             and time kernel, plain version and, where one exists, the
+             single PyTorch call computing the same function.
+3. workflow— the port's TrackWorkflow end to end on the card (threads,
+             8 workers, 4 tasks per message, 8 raw files at scale 500),
+             with every kernel's launch counter zeroed just before and
+             read just after.
+4. globe   — one process_batch over every archive the workflow wrote,
+             on the GLOBE-resolution DEM, on the card and on the CPU
+             (plain versions), compared within 1e-4 (both sides run the
+             same f32 operations), with the host parse timed apart from
+             the pipeline.
+
+The line before the last is the card's name and power limit; before it
+one JSON object lists every kernel with its timings.  The last line is
+``{"ok": true, "device": {...}}``.  Any failure raises and exits
+non-zero before that line is printed.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(HERE, "src")
+WORK = os.path.join(HERE, "experiments", "chip_smoke")
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM memory rate
+F32_OPS_PER_S = 67e12            # H100 SXM f32 rate outside tensor cores
+B_ROWS, N_KNOTS = 1024, 128
+WIDTHS = (128, 256, 512, 1024)
+TIMED_RUNS = 30
+# Tolerances of the parity tests (tests/test_kernels.py and
+# tests/test_segment_pipeline.py); headings compare as wrapped angles.
+TOL = {"track_interp": (1e-5, 1e-4), "agl_lookup": (1e-4, 1e-2),
+       "dynamic_rates": (1e-4, 1e-3)}
+# Card against CPU on the GLOBE batch: both run the same f32 operations
+# without FMA, so only cosf/atan2f ulps differ.  |card - CPU| must stay
+# within CARD_ATOL + CARD_RTOL * |CPU| on every plane (headings wrapped).
+CARD_ATOL, CARD_RTOL = 1e-4, 1e-6
+
+
+def say(phase: str, msg: str) -> None:
+    print(f"[{phase}] {msg}", flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    return out.splitlines()[0]
+
+
+def device_ms(fn, runs: int = TIMED_RUNS, warmup: int = 3) -> float:
+    """Median device time of one call, from CUDA events around each of
+    ``runs`` back-to-back calls.  A spin kernel first holds the stream
+    while the host queues every call, so host overhead between calls
+    does not show as device time."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(runs + 1)]
+    torch.cuda._sleep(200_000_000)
+    ev[0].record()
+    for i in range(runs):
+        fn()
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    return statistics.median(ev[i].elapsed_time(ev[i + 1])
+                             for i in range(runs))
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def wrapped(a, b):
+    """|a - b| as angles, in (-pi, pi]."""
+    d = (a.double() - b.double() + math.pi) % (2 * math.pi) - math.pi
+    return d.abs()
+
+
+def bucket_inputs(rng, W: int):
+    """One (B_ROWS, W) bucket shaped like the process phase's: 10-120
+    irregular knots about 10 s apart (dataset #1's update period),
+    covering half to all of the bucket's 1 Hz grid, over CONUS."""
+    import numpy as np
+    t_in = np.zeros((B_ROWS, N_KNOTS), np.float32)
+    v_in = np.zeros((B_ROWS, 3, N_KNOTS), np.float32)
+    count_in = np.zeros(B_ROWS, np.int32)
+    t_out = np.zeros((B_ROWS, W), np.float32)
+    count_out = np.zeros(B_ROWS, np.int32)
+    for b in range(B_ROWS):
+        m = int(rng.integers(W // 2 + 1, W + 1))
+        n = int(min(max(m // 10, 10), 120))
+        t = np.sort(rng.uniform(0, m - 1, n))
+        t[0], t[-1] = 0.0, m - 1
+        t_in[b, :n] = t
+        t_in[b, n:] = t[-1] + np.arange(1, N_KNOTS - n + 1)
+        hdg = rng.uniform(0, 2 * np.pi) + np.cumsum(rng.normal(0, 0.05, n))
+        step = rng.uniform(30, 220) * np.diff(t, prepend=0.0) / 111_111.0
+        lat0 = rng.uniform(26, 48)
+        v_in[b, 0, :n] = lat0 + np.cumsum(step * np.cos(hdg))
+        v_in[b, 1, :n] = rng.uniform(-122, -69) + np.cumsum(
+            step * np.sin(hdg) / np.cos(np.deg2rad(lat0)))
+        v_in[b, 2, :n] = np.maximum(
+            rng.uniform(300, 3000) + np.cumsum(rng.normal(0, 20, n)), 10)
+        v_in[b, :, n:] = v_in[b, :, n - 1:n]
+        count_in[b] = n
+        t_out[b, :m] = np.arange(m)
+        t_out[b, m:] = m - 1
+        count_out[b] = m
+    return t_in, v_in, count_in, t_out, count_out
+
+
+def phase_build() -> str:
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    _build.lib()
+    say("build", f"libkernels built in {_build.build_seconds:.2f}s "
+                 f"(load {time.perf_counter() - t0:.2f}s) for sm_90a")
+    for line in _build.build_log().splitlines():
+        if "registers" in line or "spill" in line.lower():
+            say("build", "ptxas" + line.split("ptxas", 1)[-1])
+    card = card_line()
+    say("build", f"card: {card}")
+    return card
+
+
+def phase_kernels(globe_dem) -> dict:
+    """Each kernel against its plain version, timed, at every width."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.agl_lookup import agl_lookup
+    from repro_torch.kernels.dynamic_rates import dynamic_rates
+    from repro_torch.kernels.track_interp import track_interp
+
+    dev = torch.device("cuda")
+    dem = torch.from_numpy(
+        globe_dem.elevation_m.astype(np.float32)).to(dev)
+    H, W_dem = dem.shape
+    grid = (globe_dem.lat_min, globe_dem.lat_max, globe_dem.lon_min,
+            globe_dem.lon_max, float(globe_dem.cells_per_deg))
+    say("kernels", f"DEM {H} x {W_dem} f32, "
+                   f"{dem.numel() * 4 / 1e6:.1f} MB on the card")
+    rng = np.random.default_rng(11)
+    results = {name: {"per_width": {}, "max_abs_err": 0.0}
+               for name in TOL}
+    for W in WIDTHS:
+        t_in, v_in, count_in, t_out, count_out = (
+            torch.from_numpy(x).to(dev) for x in bucket_inputs(rng, W))
+        B, C, N = v_in.shape
+
+        # track_interp
+        got = track_interp(t_in, v_in, count_in, t_out)
+        want = ref.track_interp_ref(t_in, v_in, count_in, t_out)
+        err_i = (got - want).abs().max().item()
+        ok_i = torch.allclose(got, want, rtol=TOL["track_interp"][0],
+                              atol=TOL["track_interp"][1])
+        # The kernel reads only each row's first `count` knots (times and
+        # C value planes), every query time and count, and writes (B,M,C).
+        knots = int(count_in.sum().item())
+        nbytes = (knots * (1 + C) + B + B * W + B * W * C) * 4
+        b_ms, b_by = bound(nbytes, B * W * (6 + 3 * C))
+        interp_row = {
+            "ms": device_ms(lambda: track_interp(t_in, v_in, count_in,
+                                                 t_out)),
+            "plain_ms": device_ms(lambda: ref.track_interp_ref(
+                t_in, v_in, count_in, t_out)),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": err_i}
+
+        # agl_lookup on the interpolated grid, indices as the pipeline
+        # computes them
+        v_grid = got.permute(0, 2, 1).contiguous()
+        lat, lon, alt = v_grid[:, 0], v_grid[:, 1], v_grid[:, 2]
+        fi = torch.clamp((torch.clamp(lat, grid[0], grid[1]) - grid[0])
+                         * grid[4], 0.0, H - 1.001).contiguous()
+        fj = torch.clamp((torch.clamp(lon, grid[2], grid[3]) - grid[2])
+                         * grid[4], 0.0, W_dem - 1.001).contiguous()
+        alt = alt.contiguous()
+        got_a = agl_lookup(dem, fi, fj, alt)
+        want_a = ref.agl_lookup_ref(dem, fi, fj, alt)
+        err_a = (got_a - want_a).abs().max().item()
+        ok_a = torch.allclose(got_a, want_a, rtol=TOL["agl_lookup"][0],
+                              atol=TOL["agl_lookup"][1])
+        # grid_sample's bilinear, align_corners=True, is the same gather.
+        gs_grid = torch.stack([fj / (W_dem - 1) * 2 - 1,
+                               fi / (H - 1) * 2 - 1], dim=-1)[None]
+        dem4 = dem[None, None]
+        lib_a = F.grid_sample(dem4, gs_grid, mode="bilinear",
+                              align_corners=True)[0, 0]
+        lib_err = (alt - lib_a - want_a).abs().max().item()
+        i0 = torch.floor(fi).long()
+        j0 = torch.floor(fj).long()
+        cells = torch.cat([((i0 + di).clamp(max=H - 1) * W_dem
+                            + (j0 + dj).clamp(max=W_dem - 1)).flatten()
+                           for di in (0, 1) for dj in (0, 1)])
+        n_cells = torch.unique(cells).numel()
+        b_ms, b_by = bound(fi.numel() * 16 + n_cells * 4, fi.numel() * 20)
+        agl_row = {
+            "ms": device_ms(lambda: agl_lookup(dem, fi, fj, alt)),
+            "plain_ms": device_ms(lambda: ref.agl_lookup_ref(
+                dem, fi, fj, alt)),
+            "library_ms": device_ms(lambda: F.grid_sample(
+                dem4, gs_grid, mode="bilinear", align_corners=True)),
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err_a,
+            "dem_cells_touched": n_cells, "library_max_abs_err": lib_err}
+
+        # dynamic_rates on the same grid
+        got_r = dynamic_rates(v_grid, count_out, 1.0)
+        want_r = ref.dynamic_rates_ref(v_grid, count_out, 1.0)
+        diff = (got_r - want_r).abs()
+        diff[:, 2] = wrapped(got_r[:, 2], want_r[:, 2]).float()
+        err_r = diff.max().item()
+        rtol, atol = TOL["dynamic_rates"]
+        ok_r = bool((diff <= atol + rtol * want_r.abs()).all())
+        # Positions at and past count_out read nothing and write zeros.
+        valid = int(count_out.sum().item())
+        b_ms, b_by = bound((valid * 3 + B + B * 4 * W) * 4, valid * 60)
+        rates_row = {
+            "ms": device_ms(lambda: dynamic_rates(v_grid, count_out, 1.0)),
+            "plain_ms": device_ms(lambda: ref.dynamic_rates_ref(
+                v_grid, count_out, 1.0)),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": err_r}
+
+        for name, row, ok in (("track_interp", interp_row, ok_i),
+                              ("agl_lookup", agl_row, ok_a),
+                              ("dynamic_rates", rates_row, ok_r)):
+            rtol, atol = TOL[name]
+            lib = ("-" if row["library_ms"] is None
+                   else f"{row['library_ms']:.4f}")
+            say("kernels", f"{name:13s} B={B} M={W:4d}: max|diff| "
+                           f"{row['max_abs_err']:.3g} (rtol {rtol}, atol "
+                           f"{atol}) kernel {row['ms']:.4f} ms, plain "
+                           f"{row['plain_ms']:.4f} ms, library {lib} ms, "
+                           f"bound {row['bound_ms']:.4f} ms "
+                           f"({row['bound_by']})")
+            if not ok:
+                raise AssertionError(
+                    f"{name} at M={W} disagrees with its plain version: "
+                    f"max |diff| {row['max_abs_err']}")
+            results[name]["per_width"][W] = row
+            results[name]["max_abs_err"] = max(
+                results[name]["max_abs_err"], row["max_abs_err"])
+    return results
+
+
+def phase_workflow() -> tuple[dict, str]:
+    import torch
+    from repro_torch.kernels import agl_lookup, dynamic_rates, ops
+    from repro_torch.kernels import track_interp
+    from repro_torch.tracks.workflow import TrackWorkflow
+
+    shutil.rmtree(WORK, ignore_errors=True)
+    wf = TrackWorkflow(WORK, n_workers=8, tasks_per_message=4,
+                       poll_interval=0.005, device="cuda")
+    t0 = time.perf_counter()
+    n_files = wf.generate_raw(n_files=8, scale=500)
+    say("workflow", f"generated {n_files} raw files in "
+                    f"{time.perf_counter() - t0:.2f}s")
+    mods = {"track_interp": track_interp, "agl_lookup": agl_lookup,
+            "dynamic_rates": dynamic_rates}
+    for mod in mods.values():
+        mod.launches = 0
+    ops.reset_pipeline_stats()
+    t0 = time.perf_counter()
+    reports = wf.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: mod.launches for name, mod in mods.items()}
+    stats = ops.get_pipeline_stats()
+    for r in reports:
+        say("workflow", f"{r.phase:9s}: {r.tasks:4d} tasks on {r.workers} "
+                        f"threads workers in {r.job_seconds:.3f}s "
+                        f"({r.messages} messages)")
+    say("workflow", f"end to end {wall:.3f}s; launches {launches}; "
+                    f"pipeline stats {stats}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"the workflow bypassed a kernel: {launches}")
+    if stats["intermediate_transfers"] != 0:
+        raise AssertionError(f"fused path crossed the host: {stats}")
+    if [r.phase for r in reports] != ["organize", "archive", "process"]:
+        raise AssertionError(f"phases ran: {[r.phase for r in reports]}")
+    return launches, wf.archive_dir
+
+
+def phase_globe(archive_dir: str, globe_dem) -> None:
+    import numpy as np
+    import torch
+    from repro_torch.geometry.aerodromes import synthetic_aerodromes
+    from repro_torch.tracks.segments import (
+        SegmentProcessor, segment_tasks_from_archive_tree, split_segments)
+
+    tasks = segment_tasks_from_archive_tree(archive_dir)
+    aero = synthetic_aerodromes(n=64)
+    gpu = SegmentProcessor(dem=globe_dem, aerodromes=aero, device="cuda")
+    cpu = SegmentProcessor(dem=globe_dem, aerodromes=aero, device="cpu")
+    gpu.process_batch(tasks)                    # DEM upload, warm-up
+    # Where process_batch's time goes: the host parse of the zip/CSV
+    # archives, then the bucketed pipeline (packing, kernels, fetch).
+    t0 = time.perf_counter()
+    items = [(obs, split_segments(obs["time"]))
+             for obs in (gpu.read_observations(t.payload) for t in tasks)]
+    items = [it for it in items if it[1]]
+    parse_s = time.perf_counter() - t0
+    pipe_s = {}
+    for name, proc in (("card", gpu), ("CPU", cpu)):
+        t0 = time.perf_counter()
+        proc._process_many(items)
+        torch.cuda.synchronize()
+        pipe_s[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = gpu.process_batch(tasks)
+    torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = cpu.process_batch(tasks)
+    cpu_s = time.perf_counter() - t0
+    n_seg = gpu.last_stats["n_segments"]
+    if gpu.last_stats != cpu.last_stats:
+        raise AssertionError(f"bucket plans differ: {gpu.last_stats} vs "
+                             f"{cpu.last_stats}")
+    worst = {}
+    for tid, w in want.items():
+        g = got[tid]
+        if g.icao24 != w.icao24 or g.airspace != w.airspace or \
+                not np.array_equal(g.count, w.count):
+            raise AssertionError(f"{tid}: names/airspace/counts differ")
+        for attr in ("times", "lat", "lon", "alt_msl_m", "alt_agl_m",
+                     "vrate_ms", "gspeed_ms", "heading_rad", "turn_rad_s"):
+            a, b = getattr(g, attr), getattr(w, attr)
+            if not a.size:
+                continue
+            if attr == "heading_rad":
+                d = np.abs(np.angle(np.exp(1j * (a.astype(np.float64) - b))))
+            else:
+                d = np.abs(a.astype(np.float64) - b)
+            bad = d > CARD_ATOL + CARD_RTOL * np.abs(b)
+            worst[attr] = max(worst.get(attr, 0.0), float(d.max()))
+            if bad.any():
+                raise AssertionError(f"{tid} {attr}: card and CPU differ "
+                                     f"by {d.max()}")
+    say("globe", f"{len(tasks)} archives, {n_seg} segments, "
+                 f"{gpu.last_stats['pipeline_calls']} pipeline calls on a "
+                 f"{globe_dem.elevation_m.shape[0]} x "
+                 f"{globe_dem.elevation_m.shape[1]} DEM: card "
+                 f"{gpu_s:.3f}s ({n_seg / gpu_s:.1f} segments/s, host "
+                 f"parse included), CPU plain {cpu_s:.3f}s "
+                 f"({n_seg / cpu_s:.1f} segments/s)")
+    say("globe", f"split: host parse {parse_s:.3f}s; pipeline alone "
+                 f"card {pipe_s['card']:.3f}s "
+                 f"({n_seg / pipe_s['card']:.1f} segments/s), CPU plain "
+                 f"{pipe_s['CPU']:.3f}s "
+                 f"({n_seg / pipe_s['CPU']:.1f} segments/s)")
+    say("globe", f"max |card - CPU| per plane (limit {CARD_ATOL} + "
+                 f"{CARD_RTOL} |CPU|): " + ", ".join(
+                     f"{k} {v:.3g}" for k, v in worst.items()))
+
+    # Device busy share of the card's pipeline, from a profiler trace of
+    # one more pass (the timed passes above ran without the profiler).
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        gpu._process_many(items)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    busy = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) == cuda:
+            busy[e.key] = getattr(e, "self_device_time_total", 0.0) / 1e3
+    busy_ms = sum(busy.values())
+    if busy_ms > 0:
+        top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
+        say("globe", f"profiled pipeline pass {prof_s * 1e3:.1f} ms wall, "
+                     f"device busy {busy_ms:.3f} ms (idle share "
+                     f"{1 - busy_ms / (prof_s * 1e3):.4f}); top: " + "; ".join(
+                         f"{k[:40]} {v:.3f} ms" for k, v in top))
+    else:
+        say("globe", "profiler saw no device time: idle share not measured")
+
+
+def main() -> int:
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+        print("chip_smoke.py: src/repro_torch is missing; run it from "
+              "the repository root", file=sys.stderr)
+        return 2
+    sys.path.insert(0, SRC)
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device is available",
+              file=sys.stderr)
+        return 1
+    t_start = time.perf_counter()
+    say("setup", f"python {sys.version.split()[0]}, torch "
+                 f"{torch.__version__}, CUDA {torch.version.cuda}, "
+                 f"{torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = phase_build()
+
+    from repro_torch.geometry.dem import SyntheticGlobeDEM
+    t0 = time.perf_counter()
+    globe = SyntheticGlobeDEM(cells_per_deg=120)
+    say("setup", f"GLOBE-resolution DEM generated in "
+                 f"{time.perf_counter() - t0:.2f}s")
+    results = phase_kernels(globe)
+    launches, archive_dir = phase_workflow()
+    phase_globe(archive_dir, globe)
+
+    from repro_torch.kernels import _build
+    sources = {"track_interp": "track_interp.cu",
+               "agl_lookup": "agl_lookup.cu",
+               "dynamic_rates": "dynamic_rates.cu"}
+    replaces = {"track_interp": "src/repro/kernels/track_interp.py:89",
+                "agl_lookup": "src/repro/kernels/agl_lookup.py:94",
+                "dynamic_rates": "src/repro/kernels/dynamic_rates.py:77"}
+    rows = []
+    for name, res in results.items():
+        top = res["per_width"][WIDTHS[-1]]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": os.path.relpath(_build.SRC_DIR / sources[name],
+                                      HERE),
+            "replaces": replaces[name],
+            "launches": launches[name],
+            "max_abs_err": res["max_abs_err"],
+            "rtol": TOL[name][0], "atol": TOL[name][1],
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": top["library_ms"],
+            "shape": f"B={B_ROWS} N={N_KNOTS} M={WIDTHS[-1]}",
+            "per_width": {str(w): {k: r[k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
+                for w, r in res["per_width"].items()},
+        })
+    say("done", f"all phases passed in {time.perf_counter() - t_start:.1f}s")
+    print(json.dumps({"kernels": rows}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

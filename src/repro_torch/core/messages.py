@@ -1,0 +1,138 @@
+"""Message protocol + task model for manager/worker self-scheduling.
+
+The paper's protocol (§II.D):
+
+  * One managing process, many worker compute processes.
+  * The manager sequentially allocates initial tasks to all workers as fast
+    as possible, without pausing between sends.
+  * Workers complete a task, then report back to the manager.
+  * The manager receives completion messages, decides whether more tasks
+    need allocation, and sequentially sends tasks to idle workers.
+  * Idle workers poll every 0.3 s for a new message; the manager polls
+    every 0.3 s for idle workers.
+  * A message may carry multiple tasks (tasks-per-message; Fig 7 / §V).
+
+This module is transport-agnostic: the same dataclasses drive every
+execution backend of repro_torch.runtime (threads, processes, and the
+discrete-event simulator).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+import time
+from typing import Any, Callable, Optional, Sequence
+
+
+class TaskState(enum.Enum):
+    PENDING = "pending"
+    IN_FLIGHT = "in_flight"
+    COMPLETED = "completed"
+    FAILED = "failed"
+
+
+@dataclasses.dataclass
+class Task:
+    """One unit of work (one file / one aircraft id / one shard).
+
+    Attributes:
+      task_id: unique, stable id (used for exactly-once accounting and for
+        checkpoint/restart of the manager).
+      size_bytes: the size signal used by largest-first organization. For
+        the aviation workflow it is the file size; for the data pipeline it
+        is the shard size.
+      timestamp: chronological signal (dataset date) for chronological
+        organization.
+      payload: arbitrary task arguments handed to the worker function.
+      cpu_cost_hint: optional explicit compute-seconds hint for simulation.
+    """
+
+    task_id: str
+    size_bytes: int = 0
+    timestamp: float = 0.0
+    payload: Any = None
+    cpu_cost_hint: Optional[float] = None
+
+    def __post_init__(self) -> None:
+        if self.size_bytes < 0:
+            raise ValueError(f"size_bytes must be >= 0: {self.size_bytes}")
+
+
+class MessageKind(enum.Enum):
+    ASSIGN = "assign"          # manager -> worker: here are task(s)
+    DONE = "done"              # worker -> manager: task(s) complete
+    SHUTDOWN = "shutdown"      # manager -> worker: no more work
+    HEARTBEAT = "heartbeat"    # worker -> manager: liveness (fault tolerance)
+    FAILED = "failed"          # worker -> manager: task raised
+
+
+@dataclasses.dataclass
+class Message:
+    kind: MessageKind
+    sender: str
+    tasks: tuple[Task, ...] = ()
+    task_ids: tuple[str, ...] = ()
+    # DONE messages carry the task results (aligned with task_ids) and the
+    # worker's busy time for the batch — the manager never peeks at worker
+    # memory, so the same message works across threads AND processes.
+    results: tuple[Any, ...] = ()
+    busy_seconds: float = 0.0
+    # Seconds of busy_seconds the worker spent *waiting on its feed*
+    # (e.g. the store reader's decode/prefetch wait) rather than
+    # computing — reported by worker fns exposing ``take_wait_s()`` and
+    # surfaced per worker in RunResult so BENCH artifacts can attribute
+    # time to scheduling vs I/O.
+    wait_seconds: float = 0.0
+    error: Optional[str] = None
+    sent_at: float = dataclasses.field(default_factory=time.monotonic)
+
+
+# ---------------------------------------------------------------------------
+# Task organization policies (§IV.A): chronological, largest-first, random.
+# ---------------------------------------------------------------------------
+
+Organizer = Callable[[Sequence[Task]], list[Task]]
+
+
+def organize_chronological(tasks: Sequence[Task]) -> list[Task]:
+    """Earliest date first, most recent last (paper §IV.A)."""
+    return sorted(tasks, key=lambda t: (t.timestamp, t.task_id))
+
+
+def organize_largest_first(tasks: Sequence[Task]) -> list[Task]:
+    """Largest file first, smallest last — the winning policy (Tables I/II)."""
+    return sorted(tasks, key=lambda t: (-t.size_bytes, t.task_id))
+
+
+def organize_random(tasks: Sequence[Task], seed: int = 0) -> list[Task]:
+    """Random order (used for the processing step, §IV.C, and radar §V)."""
+    import random as _random
+    rng = _random.Random(seed)
+    out = list(tasks)
+    rng.shuffle(out)
+    return out
+
+
+def organize_by_filename(tasks: Sequence[Task]) -> list[Task]:
+    """LLMapReduce default: sorted by filename. With the 4-tier hierarchy
+    this sorts tasks by specific aircraft, clustering large tasks — the
+    pathology behind the block-distribution load imbalance (§IV.B)."""
+    return sorted(tasks, key=lambda t: t.task_id)
+
+
+ORGANIZERS: dict[str, Organizer] = {
+    "chronological": organize_chronological,
+    "largest_first": organize_largest_first,
+    "random": organize_random,
+    "filename": organize_by_filename,
+}
+
+
+def get_organizer(name: str) -> Organizer:
+    try:
+        return ORGANIZERS[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown task organization {name!r}; "
+            f"choose from {sorted(ORGANIZERS)}") from None

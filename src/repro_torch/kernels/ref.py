@@ -1,0 +1,116 @@
+"""Plain PyTorch versions of the segment kernels (the correctness reference).
+
+Straightforward, unfused tensor code with the signatures and layouts of
+the JAX package's oracles.  On a CPU tensor each kernel wrapper runs its
+plain version from here; on the card ``chip_smoke.py`` holds every CUDA
+kernel against it.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+M_PER_DEG = 111_111.0
+DEG2RAD = math.pi / 180.0
+
+
+def track_interp_ref(t_in: torch.Tensor, v_in: torch.Tensor,
+                     count: torch.Tensor, t_out: torch.Tensor) -> torch.Tensor:
+    """Piecewise-linear resample of tracks onto a new time grid.
+
+    Args:
+      t_in:  (B, N) sorted observation times (padding after ``count``).
+      v_in:  (B, C, N) channel values at t_in.
+      count: (B,) int32 — number of valid observations per track (>= 2).
+      t_out: (B, M) query times.
+    Returns:
+      (B, M, C) linearly interpolated values; t_out clamped to the valid
+      time range of each track (constant extrapolation at the ends).
+    """
+    B, C, _ = v_in.shape
+    M = t_out.shape[1]
+    last = (count.long() - 1)[:, None]                       # (B, 1)
+    t0 = t_in[:, :1]
+    tl = t_in.gather(1, last)
+    q = torch.minimum(torch.maximum(t_out, t0), tl)
+    # Right bracketing index in [1, last].
+    idx = torch.searchsorted(t_in.contiguous(), q.contiguous(), right=True)
+    idx = torch.minimum(torch.clamp(idx, min=1), last)
+    tj = t_in.gather(1, idx - 1)
+    tj1 = t_in.gather(1, idx)
+    gap = tj1 > tj
+    w = torch.where(gap, (q - tj) / torch.where(gap, tj1 - tj, 1.0), 0.0)
+    vl = v_in.gather(2, (idx - 1)[:, None, :].expand(B, C, M))
+    vr = v_in.gather(2, idx[:, None, :].expand(B, C, M))
+    return ((1.0 - w)[:, None, :] * vl + w[:, None, :] * vr).transpose(1, 2)
+
+
+def dynamic_rates_ref(v: torch.Tensor, count: torch.Tensor,
+                      dt: float) -> torch.Tensor:
+    """Dynamic rates from a uniformly resampled track (paper §III.A).
+
+    Args:
+      v: (B, 3, M) — lat (deg), lon (deg), altitude (m) on a uniform grid.
+      count: (B,) int32 valid lengths.
+      dt: grid spacing in seconds.
+    Returns:
+      (B, 4, M): vertical rate (m/s), ground speed (m/s), heading (rad,
+      from north, clockwise), turn rate (rad/s). Positions >= count are 0.
+    """
+    B, _, M = v.shape
+    lat, lon, alt = v[:, 0], v[:, 1], v[:, 2]
+    idx = torch.arange(M, device=v.device)[None, :]
+    last = (count.long() - 1)[:, None]
+    li = torch.clamp(idx - 1, min=0).expand(B, M)
+    ri = torch.minimum(idx + 1, torch.clamp(last, min=0))
+    denom = torch.clamp(ri - li, min=1).to(torch.float32) * dt
+
+    def central(x):
+        # difference between clamped neighbors: central inside the valid
+        # range, one-sided at both track ends.
+        return (x.gather(1, ri) - x.gather(1, li)) / denom
+
+    vrate = central(alt)
+    dn = central(lat) * M_PER_DEG                       # north velocity m/s
+    de = central(lon) * M_PER_DEG * torch.cos(lat * DEG2RAD)
+    gspeed = torch.sqrt(dn * dn + de * de)
+    heading = torch.atan2(de, dn)
+    dh = central(heading) * dt                          # un-normalized diff
+    # torch.remainder is a floor-mod, like jnp's %: wrap to [-pi, pi).
+    dh = torch.remainder(dh + math.pi, 2.0 * math.pi) - math.pi
+    turn = dh / dt
+    out = torch.stack([vrate, gspeed, heading, turn], dim=1)
+    valid = idx[:, None, :] < count[:, None, None]
+    return torch.where(valid, out, 0.0)
+
+
+def agl_lookup_ref(dem: torch.Tensor, fi: torch.Tensor, fj: torch.Tensor,
+                   alt_msl: torch.Tensor) -> torch.Tensor:
+    """AGL altitude: MSL altitude minus bilinear DEM elevation.
+
+    Args:
+      dem: (H, W) elevation grid (m).
+      fi, fj: (B, M) fractional row/col indices into dem.
+      alt_msl: (B, M) MSL altitudes (m).
+    Returns:
+      (B, M) AGL altitudes (m).  The far neighbour's index is clamped
+      into the grid, as the JAX oracle's gather clamps it.
+    """
+    H, W = dem.shape
+    fi = torch.clamp(fi, 0.0, H - 1.000001)
+    fj = torch.clamp(fj, 0.0, W - 1.000001)
+    i0 = torch.floor(fi).long()
+    j0 = torch.floor(fj).long()
+    i1 = torch.clamp(i0 + 1, max=H - 1)
+    j1 = torch.clamp(j0 + 1, max=W - 1)
+    di = fi - i0
+    dj = fj - j0
+    z00 = dem[i0, j0]
+    z01 = dem[i0, j1]
+    z10 = dem[i1, j0]
+    z11 = dem[i1, j1]
+    elev = ((1 - di) * (1 - dj) * z00 + (1 - di) * dj * z01
+            + di * (1 - dj) * z10 + di * dj * z11)
+    return alt_msl - elev

@@ -1,0 +1,228 @@
+"""``run_job`` — one entry point, two live execution backends.
+
+    from repro_torch.runtime import run_job
+    r = run_job(tasks, fn, backend="processes",
+                triple=TriplesConfig(nodes=2, nppn=8))
+
+Backends:
+  * ``threads``   — in-process worker threads (fast start, shared memory).
+  * ``processes`` — one OS process per worker via multiprocessing: the
+    real process isolation of triples-mode NPPN placement.
+
+Both run the identical §II.D protocol through one
+:class:`~repro_torch.runtime.protocol.SchedulerCore`, so for a fixed job spec
+they produce the same completed-task set and the same dispatch log
+(``RunResult.batches``).
+
+A :class:`~repro_torch.core.triples.TriplesConfig` triple selects worker count
+and placement uniformly: ``worker_processes`` (total processes minus the
+manager) becomes the worker count on every backend, and nodes/NPPN feed
+the cost-aware policies' task estimates.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Optional, Sequence
+
+from repro_torch.core.messages import Task
+from repro_torch.runtime.policies import get_policy, model_task_cost
+from repro_torch.runtime.protocol import (
+    DEFAULT_POLL_INTERVAL_S, ManagerCheckpoint, SchedulerCore, ShardedCore,
+    drive)
+from repro_torch.runtime.result import RunResult
+from repro_torch.runtime.transports import TRANSPORTS
+
+BACKENDS = ("threads", "processes")
+
+__all__ = ["BACKENDS", "default_topology", "run_job"]
+
+
+def default_topology(n_workers: int) -> tuple[int, int]:
+    """Default (nodes, nppn) when no triple is given: NPPN 8 (the paper's
+    best-performing setting), as many nodes as that implies — the
+    topology the cost-aware policies estimate task seconds at.
+    """
+    return max(n_workers // 8, 1), min(n_workers, 8)
+
+
+def run_job(tasks: Sequence[Task],
+            fn: Optional[Callable[[Task], Any]] = None, *,
+            backend: str = "threads",
+            n_workers: Optional[int] = None,
+            triple: Optional[Any] = None,
+            organization: str = "largest_first",
+            tasks_per_message: int = 1,
+            policy: Optional[Any] = None,
+            n_manager_shards: int = 1,
+            poll_interval: float = DEFAULT_POLL_INTERVAL_S,
+            failure_timeout: Optional[float] = None,
+            checkpoint: Optional[ManagerCheckpoint] = None,
+            on_checkpoint: Optional[Callable[[ManagerCheckpoint], None]] = None,
+            checkpoint_interval_s: float = 1.0,
+            organize_seed: int = 0,
+            batch_fn: Optional[Callable[[list[Task]], dict]] = None,
+            raise_on_failure: bool = True,
+            worker_fail_after: Optional[dict[str, int]] = None,
+            # cost model: the cost-aware policies' task estimates
+            cost_model: Optional[Any] = None,
+            nodes: Optional[int] = None,
+            nppn: Optional[int] = None,
+            speculative: bool = False,
+            speculation_max_copies: int = 2,
+            speed_feedback: bool = False,
+            speed_model: Optional[Any] = None,
+            elastic: bool = False,
+            fleet: Optional[Any] = None,
+            worker_slow_factor: Optional[dict[str, float]] = None,
+            mp_context: Optional[str] = None,
+            tracer: Optional[Any] = None) -> RunResult:
+    """Run a self-scheduled job on the chosen execution backend.
+
+    ``fn`` is the per-task worker function (required).  If ``fn`` exposes a ``process_batch`` method —
+    or ``batch_fn`` is passed — a multi-task ASSIGN executes as ONE call
+    (e.g. one bucketed pass of the segment kernels) instead of per-task
+    Python dispatch.  Task payloads should be plain strings so they
+    survive every backend's message path (pickled process messages,
+    JSON checkpoints) — e.g. the track workflow's store-backed tasks
+    name zip archives by path.  ``worker_fail_after`` is the
+    fault-injection hook.  ``on_checkpoint`` fires on wall-clock
+    intervals.
+
+    ``policy`` selects the scheduling policy (a name from
+    :data:`repro_torch.runtime.policies.POLICY_NAMES` or a configured
+    :class:`~repro_torch.runtime.policies.SchedulingPolicy` instance) with
+    identical semantics on both backends; the default ``static``
+    keeps the historical organizer-order fixed-batch dispatch bitwise.
+    Cost-aware policies (``sized_lpt``, ``adaptive_chunk``) estimate
+    per-task seconds from ``cost_model`` (default: the §IV.C process
+    phase) at the job's topology — on EVERY backend, so a fixed job
+    spec orders and chunks identically on threads and processes.
+
+    ``n_manager_shards`` > 1 partitions the pending queue by locality
+    run into N coordinator shards (:class:`ShardedCore`): each shard
+    owns a disjoint task partition and a contiguous block of workers,
+    with work-stealing from sibling tails once a shard drains.  On the
+    live backends the shards are N independent decision loops over one
+    transport.  Requires a policy *name* (each shard instantiates its own).
+
+    Streaming-task payload contract: tasks admitted mid-run (via
+    ``core.admit``) must carry everything the worker needs in
+    ``task_id`` / ``size_bytes`` / ``timestamp`` / ``payload`` /
+    ``cpu_cost_hint``, with ``payload`` a plain string: those five
+    fields are exactly what survives the checkpoint frontier
+    (``ManagerCheckpoint.frontier``) and every transport's message
+    path, so a resumed manager can re-admit the task bit-identically
+    without re-running its producer.
+
+    ``tracer`` attaches a tracer object (``SchedulerCore.attach_tracer``):
+    task lifecycle instants and exec spans are emitted on both backends,
+    and tracing never changes a dispatch decision.
+
+    ``speculative`` re-issues the longest-in-flight task to idle
+    workers once the queue drains (at most ``speculation_max_copies``
+    copies of a task; first DONE wins) — on every backend.  Speculative
+    ASSIGNs are counted in ``RunResult.extra_messages``, never in
+    ``batches``, so the dispatch digest still covers the primary
+    schedule only.
+
+    ``speed_feedback`` turns on online per-worker speed estimation
+    (:class:`~repro_torch.runtime.speed.WorkerSpeedModel`, or pass a seeded
+    ``speed_model``): cost-aware policies then size each worker's next
+    chunk by its observed relative speed.  Because chunk sizes depend
+    on measured timings, this is an explicit exception to the
+    cross-backend bit-identical dispatch contract.
+
+    ``elastic`` attaches a threshold-driven
+    :class:`~repro_torch.runtime.fleet.FleetController` (or pass a configured
+    ``fleet``) that grows/shrinks the worker pool from observed queue
+    depth and idleness — threads backend, single manager shard only.  ``worker_slow_factor`` maps live worker ids (``"w3"``)
+    to slowdown multipliers (straggler injection).
+    """
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; "
+                         f"choose from {BACKENDS}")
+    if triple is not None:
+        if n_workers is None:
+            n_workers = max(triple.worker_processes, 1)
+        if nodes is None:
+            nodes = triple.nodes
+        if nppn is None:
+            nppn = triple.nppn
+    if n_workers is None:
+        n_workers = 4
+    if n_workers < 1:
+        raise ValueError("need at least one worker")
+
+    default_nodes, default_nppn = default_topology(n_workers)
+    if cost_model is None:
+        from repro_torch.core.cost_model import PROCESS_PHASE
+        cost_model = PROCESS_PHASE
+    # One cost estimator for all backends: dispatch decisions must not
+    # depend on where the job runs (the cross-backend bit-identical
+    # dispatch contract covers the cost-aware policies too).
+    cost_fn = model_task_cost(
+        cost_model,
+        nppn=nppn if nppn is not None else default_nppn,
+        nodes=nodes if nodes is not None else default_nodes)
+    if speed_feedback and speed_model is None:
+        from repro_torch.runtime.speed import WorkerSpeedModel
+        speed_model = WorkerSpeedModel()
+    if elastic and fleet is None:
+        from repro_torch.runtime.fleet import FleetController
+        fleet = FleetController(
+            min_workers=1, max_workers=max(2 * n_workers, n_workers + 1))
+    if fleet is not None:
+        if n_manager_shards > 1:
+            raise ValueError(
+                "elastic fleets require n_manager_shards=1 (the controller "
+                "drives one worker pool; shards own worker blocks)")
+        if backend == "processes":
+            raise ValueError(
+                "elastic fleets support the threads backend only "
+                "(ProcessTransport cannot spawn workers mid-run)")
+    if n_manager_shards > 1:
+        core: Any = ShardedCore(
+            tasks, n_shards=n_manager_shards, n_workers=n_workers,
+            organization=organization, tasks_per_message=tasks_per_message,
+            checkpoint=checkpoint, organize_seed=organize_seed,
+            policy=policy, cost_fn=cost_fn,
+            speculative=speculative,
+            speculation_max_copies=speculation_max_copies,
+            speed_model=speed_model)
+    else:
+        policy_obj = get_policy(policy, tasks_per_message=tasks_per_message,
+                                n_workers=n_workers, cost_fn=cost_fn)
+        core = SchedulerCore(tasks, organization=organization,
+                             tasks_per_message=tasks_per_message,
+                             checkpoint=checkpoint,
+                             organize_seed=organize_seed,
+                             policy=policy_obj, n_workers=n_workers,
+                             speculative=speculative,
+                             speculation_max_copies=speculation_max_copies,
+                             speed_model=speed_model, fleet=fleet)
+
+    if fn is None:
+        raise ValueError(f"backend {backend!r} needs a worker fn")
+    if tracer is not None:
+        # Live backends: wall-clock domain, attached before the drive
+        # loop so the queued-at-attach instants precede the first ASSIGN.
+        core.attach_tracer(tracer)
+    if batch_fn is None:
+        batch_fn = getattr(fn, "process_batch", None)
+    heartbeat = (failure_timeout / 3 if failure_timeout is not None else None)
+    transport_cls = TRANSPORTS[backend]
+    kwargs: dict[str, Any] = {}
+    if backend == "processes" and mp_context is not None:
+        kwargs["mp_context"] = mp_context
+    transport = transport_cls(
+        n_workers, fn, batch_fn=batch_fn, poll_interval=poll_interval,
+        heartbeat_interval=heartbeat, worker_fail_after=worker_fail_after,
+        worker_slow_factor=worker_slow_factor,
+        **kwargs)
+    return drive(core, transport,
+                 poll_interval=poll_interval,
+                 failure_timeout=failure_timeout,
+                 on_checkpoint=on_checkpoint,
+                 checkpoint_interval_s=checkpoint_interval_s,
+                 raise_on_failure=raise_on_failure,
+                 backend=backend)

@@ -1,0 +1,351 @@
+"""Execution transports: how ASSIGN/DONE messages physically move.
+
+One worker loop serves both live backends — it only needs a blocking
+``get(timeout)`` inbox and a ``to_manager(msg)`` callable:
+
+  * :class:`ThreadTransport` — in-process ``queue.Queue`` mailboxes
+    (migrated from the old core/selfsched.py runtime).
+  * :class:`ProcessTransport` — ``multiprocessing`` queues + one OS
+    process per worker, the real process isolation of triples-mode NPPN.
+    Results ride back inside DONE messages (no shared memory), exactly
+    like the paper's manager/worker messaging.
+
+``fail_after`` kills a worker after N completed tasks (fault-injection
+hook for tests): the worker returns without sending DONE, exactly like a
+node death mid-batch.
+"""
+
+from __future__ import annotations
+
+import abc
+import multiprocessing
+import queue
+import sys
+import threading
+import time
+from typing import Any, Callable, Optional, Sequence
+
+from repro_torch.core.messages import Message, MessageKind, Task
+from repro_torch.runtime.protocol import DEFAULT_POLL_INTERVAL_S
+
+__all__ = ["Transport", "ThreadTransport", "ProcessTransport", "worker_loop"]
+
+BatchFn = Callable[[list[Task]], dict]
+
+
+def worker_loop(worker_id: str, inbox, to_manager: Callable[[Message], None],
+                fn: Callable[[Task], Any], *,
+                batch_fn: Optional[BatchFn] = None,
+                poll_interval: float = DEFAULT_POLL_INTERVAL_S,
+                heartbeat_interval: Optional[float] = None,
+                fail_after: Optional[int] = None,
+                slow_factor: Optional[float] = None) -> None:
+    """A worker process: poll for ASSIGN, run, report DONE, repeat.
+
+    "While idle, the workers wait 0.3 seconds prior between checking if
+    another task was sent from the manager."  When ``batch_fn`` is given,
+    a multi-task ASSIGN executes as ONE call (e.g. a single vectorized
+    pallas invocation over every task in the message) instead of per-task
+    Python dispatch; ``batch_fn`` returns a dict of task_id -> result.
+
+    ``slow_factor`` > 1 makes this worker run that many times slower (it
+    sleeps ``(slow_factor - 1) x elapsed`` after each execution) — the
+    live mirror of the sim's ``worker_speed`` straggler injection, used
+    to exercise speculation and speed-fed sizing on real threads.
+
+    Heartbeats run on a side thread so a worker keeps beating *through*
+    long task executions — manager-side silence therefore means the
+    worker is gone (crash/kill), never merely busy.  A task stuck forever
+    still heartbeats; guarding against that needs task-level timeouts.
+    """
+    # Announce liveness immediately: spawn-based workers can take seconds
+    # to boot, and the manager must not confuse booting with death.
+    to_manager(Message(MessageKind.HEARTBEAT, sender=worker_id))
+    stop_heartbeats = None
+    if heartbeat_interval is not None:
+        stop_heartbeats = threading.Event()
+
+        def _beat() -> None:
+            while not stop_heartbeats.wait(heartbeat_interval):
+                to_manager(Message(MessageKind.HEARTBEAT, sender=worker_id))
+
+        threading.Thread(target=_beat, name=f"heartbeat-{worker_id}",
+                         daemon=True).start()
+    try:
+        _worker_recv_loop(worker_id, inbox, to_manager, fn, batch_fn,
+                          poll_interval, fail_after, slow_factor)
+    finally:
+        if stop_heartbeats is not None:
+            stop_heartbeats.set()
+
+
+def _worker_recv_loop(worker_id, inbox, to_manager, fn, batch_fn,
+                      poll_interval, fail_after,
+                      slow_factor=None) -> None:
+    completed = 0
+    drag = (slow_factor - 1.0) if slow_factor and slow_factor > 1.0 else 0.0
+    while True:
+        try:
+            msg = inbox.get(timeout=poll_interval)
+        except queue.Empty:
+            continue
+        if msg.kind is MessageKind.SHUTDOWN:
+            return
+        assert msg.kind is MessageKind.ASSIGN
+        tasks = list(msg.tasks)
+        done_ids: list[str] = []
+        res: list[Any] = []
+        t0 = time.monotonic()
+        if batch_fn is not None and len(tasks) > 1:
+            if fail_after is not None and completed + len(tasks) > fail_after:
+                return  # simulate node death mid-batch: no DONE sent
+            try:
+                out = batch_fn(tasks)
+            except Exception as e:  # whole batch fails together
+                to_manager(Message(
+                    MessageKind.FAILED, sender=worker_id,
+                    task_ids=tuple(t.task_id for t in tasks), error=repr(e)))
+                continue
+            if drag:
+                time.sleep(drag * (time.monotonic() - t0))
+            for t in tasks:
+                done_ids.append(t.task_id)
+                res.append(out.get(t.task_id) if isinstance(out, dict)
+                           else out)
+            completed += len(tasks)
+        else:
+            for task in tasks:
+                if fail_after is not None and completed >= fail_after:
+                    return  # simulate node death mid-batch: no DONE sent
+                t_task = time.monotonic()
+                try:
+                    r = fn(task)
+                except Exception as e:  # report, don't die
+                    to_manager(Message(
+                        MessageKind.FAILED, sender=worker_id,
+                        task_ids=(task.task_id,), error=repr(e)))
+                    continue
+                if drag:
+                    time.sleep(drag * (time.monotonic() - t_task))
+                done_ids.append(task.task_id)
+                res.append(r)
+                completed += 1
+        if done_ids:
+            # Worker fns may expose take_wait_s() (return-and-reset feed
+            # wait accumulated in THIS thread/process, e.g. store decode
+            # stalls); it rides back in the DONE so the manager can split
+            # busy time into compute vs I/O wait.
+            take_wait = getattr(fn, "take_wait_s", None)
+            wait_s = float(take_wait()) if take_wait is not None else 0.0
+            to_manager(Message(
+                MessageKind.DONE, sender=worker_id,
+                task_ids=tuple(done_ids), results=tuple(res),
+                busy_seconds=time.monotonic() - t0,
+                wait_seconds=wait_s))
+
+
+class Transport(abc.ABC):
+    """Message delivery + worker lifecycle for one live backend."""
+
+    worker_ids: list[str]
+
+    @abc.abstractmethod
+    def start(self) -> None:
+        """Launch the workers."""
+
+    @abc.abstractmethod
+    def send(self, worker_id: str, msg: Message) -> None:
+        """Deliver a message to one worker's inbox."""
+
+    @abc.abstractmethod
+    def recv_nowait(self) -> Optional[Message]:
+        """Pop one message from the manager inbox, or None."""
+
+    @abc.abstractmethod
+    def stop(self) -> None:
+        """Shut every worker down (idempotent)."""
+
+    def worker_alive(self, worker_id: str) -> bool:
+        """Best-effort liveness probe (used to avoid declaring a
+        still-booting worker dead before its first message)."""
+        return True
+
+
+class _LiveTransport(Transport):
+    """Shared config plumbing for the thread/process transports."""
+
+    def __init__(self, n_workers: int, fn: Callable[[Task], Any], *,
+                 batch_fn: Optional[BatchFn] = None,
+                 poll_interval: float = DEFAULT_POLL_INTERVAL_S,
+                 heartbeat_interval: Optional[float] = None,
+                 worker_fail_after: Optional[dict[str, int]] = None,
+                 worker_slow_factor: Optional[dict[str, float]] = None):
+        if n_workers < 1:
+            raise ValueError("need at least one worker")
+        self.worker_ids = [f"w{i}" for i in range(n_workers)]
+        self._fn = fn
+        self._batch_fn = batch_fn
+        self._poll_interval = poll_interval
+        self._heartbeat_interval = heartbeat_interval
+        self._fail_after = worker_fail_after or {}
+        self._slow_factor = worker_slow_factor or {}
+        self._stopped = False
+
+    def _worker_kwargs(self, wid: str) -> dict:
+        return dict(batch_fn=self._batch_fn,
+                    poll_interval=self._poll_interval,
+                    heartbeat_interval=self._heartbeat_interval,
+                    fail_after=self._fail_after.get(wid),
+                    slow_factor=self._slow_factor.get(wid))
+
+
+class ThreadTransport(_LiveTransport):
+    """In-memory mailboxes: one inbox per worker thread + manager inbox.
+
+    The only elastic live transport: :meth:`add_worker` spawns a fresh
+    worker thread mid-run and :meth:`retire_worker` shuts one down, which
+    is what the :class:`~repro_torch.runtime.fleet.FleetController` drives
+    through the live ``drive()`` loop.
+    """
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._inboxes: dict[str, "queue.Queue[Message]"] = {
+            wid: queue.Queue() for wid in self.worker_ids}
+        self._mgr_inbox: "queue.Queue[Message]" = queue.Queue()
+        self._threads: list[threading.Thread] = []
+        self._by_id: dict[str, threading.Thread] = {}
+        self._next_id = len(self.worker_ids)
+
+    def _spawn(self, wid: str) -> None:
+        th = threading.Thread(
+            target=worker_loop, name=f"worker-{wid}", daemon=True,
+            args=(wid, self._inboxes[wid], self._mgr_inbox.put,
+                  self._fn),
+            kwargs=self._worker_kwargs(wid))
+        th.start()
+        self._threads.append(th)
+        self._by_id[wid] = th
+
+    def start(self) -> None:
+        for wid in self.worker_ids:
+            self._spawn(wid)
+
+    def add_worker(self) -> str:
+        """Spawn one new worker thread mid-run; returns its id."""
+        wid = f"w{self._next_id}"
+        self._next_id += 1
+        self._inboxes[wid] = queue.Queue()
+        self.worker_ids.append(wid)
+        self._spawn(wid)
+        return wid
+
+    def retire_worker(self, worker_id: str) -> None:
+        """Shut one worker down (graceful: it drains its inbox up to the
+        SHUTDOWN message; the caller only retires idle workers)."""
+        self._inboxes[worker_id].put(Message(MessageKind.SHUTDOWN, "manager"))
+
+    def send(self, worker_id: str, msg: Message) -> None:
+        self._inboxes[worker_id].put(msg)
+
+    def recv_nowait(self) -> Optional[Message]:
+        try:
+            return self._mgr_inbox.get_nowait()
+        except queue.Empty:
+            return None
+
+    def stop(self) -> None:
+        if self._stopped:
+            return
+        self._stopped = True
+        for wid in self.worker_ids:
+            self._inboxes[wid].put(Message(MessageKind.SHUTDOWN, "manager"))
+        for th in self._threads:
+            th.join(timeout=5.0)
+
+    def worker_alive(self, worker_id: str) -> bool:
+        th = self._by_id.get(worker_id)
+        return th is not None and th.is_alive()
+
+
+def _process_worker_main(worker_id, inbox, mgr_queue, fn, kwargs) -> None:
+    worker_loop(worker_id, inbox, mgr_queue.put, fn, **kwargs)
+
+
+def _default_start_method() -> str:
+    """Pick a safe multiprocessing start method.
+
+    ``fork`` is the cheap default, but a forked child cannot use a CUDA
+    context its parent already created (the driver's state does not
+    survive fork).  If torch has initialized CUDA, pay the spawn cost
+    instead — workers re-import and create their own context.
+    """
+    methods = multiprocessing.get_all_start_methods()
+    if "fork" not in methods:
+        return methods[0]
+    torch = sys.modules.get("torch")
+    if torch is not None and torch.cuda.is_initialized():
+        return "spawn"
+    return "fork"
+
+
+class ProcessTransport(_LiveTransport):
+    """One OS process per worker (the paper's NPPN placement, for real).
+
+    Messages are pickled over ``multiprocessing`` queues, so task results
+    return in DONE messages rather than via shared memory — a dead worker
+    loses exactly its unreported in-flight work, nothing else.
+    """
+
+    def __init__(self, *args, mp_context: Optional[str] = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        method = mp_context or _default_start_method()
+        self._ctx = multiprocessing.get_context(method)
+        self._inboxes = {wid: self._ctx.Queue() for wid in self.worker_ids}
+        self._mgr_inbox = self._ctx.Queue()
+        self._procs: list = []
+        self._by_id: dict[str, Any] = {}
+
+    def start(self) -> None:
+        for wid in self.worker_ids:
+            p = self._ctx.Process(
+                target=_process_worker_main, name=f"worker-{wid}",
+                args=(wid, self._inboxes[wid], self._mgr_inbox, self._fn,
+                      self._worker_kwargs(wid)),
+                daemon=True)
+            p.start()
+            self._procs.append(p)
+            self._by_id[wid] = p
+
+    def send(self, worker_id: str, msg: Message) -> None:
+        self._inboxes[worker_id].put(msg)
+
+    def recv_nowait(self) -> Optional[Message]:
+        try:
+            return self._mgr_inbox.get_nowait()
+        except queue.Empty:
+            return None
+
+    def stop(self) -> None:
+        if self._stopped:
+            return
+        self._stopped = True
+        for wid in self.worker_ids:
+            try:
+                self._inboxes[wid].put(Message(
+                    MessageKind.SHUTDOWN, "manager"))
+            except (ValueError, OSError):  # queue already closed
+                pass
+        for p in self._procs:
+            p.join(timeout=5.0)
+        for p in self._procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=1.0)
+
+    def worker_alive(self, worker_id: str) -> bool:
+        p = self._by_id.get(worker_id)
+        return p is not None and p.is_alive()
+
+
+TRANSPORTS = {"threads": ThreadTransport, "processes": ProcessTransport}

@@ -1,0 +1,42 @@
+"""The ``store://`` task-payload grammar of the columnar track store.
+
+Only the URI grammar is here: the scheduling policies group store tasks
+by shard (:func:`repro_torch.runtime.policies.locality_key`).  The store
+itself (codec, manifest, reader, writer) is not part of the port yet,
+so a ``store://`` payload cannot be processed.
+"""
+
+from __future__ import annotations
+
+import urllib.parse
+
+__all__ = ["STORE_URI_PREFIX", "is_store_uri", "make_store_uri",
+           "parse_store_uri"]
+
+STORE_URI_PREFIX = "store://"
+
+
+def is_store_uri(path: object) -> bool:
+    return isinstance(path, str) and path.startswith(STORE_URI_PREFIX)
+
+
+def make_store_uri(root: str, **selector: str) -> str:
+    """``make_store_uri('/d/store', shard='s00001', rows='0:8')``."""
+    frag = urllib.parse.urlencode(dict(sorted(selector.items())))
+    return STORE_URI_PREFIX + root + ("#" + frag if frag else "")
+
+
+def parse_store_uri(uri: str) -> tuple[str, dict[str, str]]:
+    """-> (store root, selector dict)."""
+    if not is_store_uri(uri):
+        raise ValueError(f"not a store uri: {uri!r}")
+    rest = uri[len(STORE_URI_PREFIX):]
+    root, _, frag = rest.partition("#")
+    sel = dict(urllib.parse.parse_qsl(frag)) if frag else {}
+    unknown = set(sel) - {"track", "shard", "rows"}
+    if unknown:
+        raise ValueError(f"unknown store selector key(s) {sorted(unknown)} "
+                         f"in {uri!r}")
+    if "rows" in sel and "shard" not in sel:
+        raise ValueError(f"rows= needs shard= in {uri!r}")
+    return root, sel

@@ -1,0 +1,591 @@
+"""Workflow step 3: process + interpolate into track segments (§III.A).
+
+Port of ``repro/tracks/segments.py`` on zip/CSV input.  Per aircraft
+archive:
+  1. split raw observations into segments on time gaps;
+  2. drop segments with fewer than ten observations (paper rule);
+  3. resample each segment onto a uniform grid  -> kernels.track_interp;
+  4. AGL altitude = MSL - DEM elevation         -> kernels.agl_lookup;
+  5. dynamic rates (vrate/speed/heading/turn)   -> kernels.dynamic_rates;
+  6. airspace class tag (nearest aerodrome within the terminal cylinder).
+
+Steps 3-5 run through the device-resident pipeline
+(:func:`repro_torch.kernels.ops.process_segments`): one call per length
+bucket, no intermediate host<->device transfers.  Segments are binned
+into power-of-two width buckets (:data:`BUCKET_SIZES`) exactly as the
+reference bins them, so bucket plans and padding statistics agree.
+``pipeline='unfused'`` keeps the three-launch host-hop path as the
+baseline.  Results are host numpy, because the processes backend
+pickles them into DONE messages.
+
+The columnar store's ``store://`` payloads are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import threading
+import zipfile
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.messages import Task
+from repro_torch.geometry.aerodromes import Aerodrome
+from repro_torch.geometry.dem import SyntheticGlobeDEM
+from repro_torch.geometry.queries import RADIUS_DEG
+from repro_torch.kernels import ops
+from repro_torch.kernels.segment_pipeline import FIELDS
+from repro_torch.store.uri import is_store_uri
+
+MIN_OBS_PER_SEGMENT = 10       # paper: remove segments with <10 observations
+SEGMENT_GAP_S = 120.0          # new segment after a 2-minute gap
+RESAMPLE_DT_S = 1.0            # uniform 1 Hz grid
+MAX_SEG_POINTS = 1024          # widest tile (pad/truncate ceiling)
+BUCKET_SIZES = (128, 256, 512, 1024)   # ragged-batch width buckets
+
+# The reference's AGL kernel reads one DEM tile of this size per track
+# and sends tracks that may leave it to a separate variant.  The port's
+# gather kernel has no tile, but the bucket key keeps the reference's
+# may-span flag, so bucket plans and pipeline_calls agree with it.
+TILE_H = 128
+TILE_W = 256
+
+
+def bucket_width(n: int) -> int:
+    """Smallest bucket that holds an ``n``-point segment (capped)."""
+    for k in BUCKET_SIZES:
+        if n <= k:
+            return k
+    return BUCKET_SIZES[-1]
+
+
+def segment_shape(times: np.ndarray, s: slice) -> tuple[int, int]:
+    """One segment's pipeline shape: (raw knots n, grid points m)."""
+    n = min(s.stop - s.start, MAX_SEG_POINTS)
+    t = times[s.start:s.start + n]
+    m = min(int((t[-1] - t[0]) / RESAMPLE_DT_S) + 1, MAX_SEG_POINTS)
+    return n, m
+
+
+def read_observations(path: str) -> dict[str, np.ndarray]:
+    """Read a per-aircraft CSV (possibly inside a .zip archive).
+
+    The parse is vectorized: one ``np.loadtxt`` over the decoded payload
+    per column group instead of a Python ``split(',')`` loop per line."""
+    if path.endswith(".zip"):
+        with zipfile.ZipFile(path) as zf:
+            text = zf.read(zf.namelist()[0]).decode()
+    else:
+        with open(path) as f:
+            text = f.read()
+    nl = text.find("\n")
+    if nl < 0 or not text[nl:].strip():
+        return {}
+    cols = {c: i for i, c in enumerate(text[:nl].strip().split(","))}
+    lines = [ln for ln in text[nl + 1:].split("\n") if ln.strip()]
+    num = np.loadtxt(lines, delimiter=",", ndmin=2,
+                     usecols=[cols[c] for c in
+                              ("time", "lat", "lon", "geoaltitude")])
+    icao = np.loadtxt(lines, delimiter=",", dtype=str,
+                      usecols=cols["icao24"], ndmin=1)
+    t = num[:, 0]
+    order = np.argsort(t, kind="stable")
+    return {
+        "time": t[order],
+        "lat": num[order, 1],
+        "lon": num[order, 2],
+        "alt": num[order, 3],
+        "icao24": icao[order],
+    }
+
+
+def _round_rows(b: int) -> int:
+    """Round a bucket's row count up: powers of two below 8, multiples
+    of 8 after — at most 7 padded rows, and far fewer batch shapes per
+    bucket width than one per distinct segment count."""
+    p = 1
+    while p < b and p < 8:
+        p *= 2
+    return p if b <= 8 else -(-b // 8) * 8
+
+
+@dataclasses.dataclass
+class ProcessedSegments:
+    """One archive's processed segments as (B, W) planes; ``W`` is the
+    archive's widest bucket (<= MAX_SEG_POINTS), ``count`` masks rows."""
+    icao24: list[str]
+    times: np.ndarray       # (B, W) uniform grid times
+    lat: np.ndarray         # (B, W)
+    lon: np.ndarray         # (B, W)
+    alt_msl_m: np.ndarray   # (B, W)
+    alt_agl_m: np.ndarray   # (B, W)
+    vrate_ms: np.ndarray    # (B, W)
+    gspeed_ms: np.ndarray   # (B, W)
+    heading_rad: np.ndarray  # (B, W)
+    turn_rad_s: np.ndarray  # (B, W)
+    count: np.ndarray       # (B,)
+    airspace: list[str]
+
+    def __len__(self) -> int:
+        return len(self.count)
+
+
+# Pipeline plane -> ProcessedSegments attribute, in FIELDS order.
+_PLANE_ATTRS = (("times", "times"), ("lat", "lat"), ("lon", "lon"),
+                ("alt_msl", "alt_msl_m"), ("alt_agl", "alt_agl_m"),
+                ("vrate", "vrate_ms"), ("gspeed", "gspeed_ms"),
+                ("heading", "heading_rad"), ("turn", "turn_rad_s"))
+assert tuple(p for p, _ in _PLANE_ATTRS) == FIELDS
+
+
+def split_segments(times: np.ndarray, gap_s: float = SEGMENT_GAP_S,
+                   min_obs: int = MIN_OBS_PER_SEGMENT) -> list[slice]:
+    """Split a sorted time vector into gap-delimited segments, dropping
+    those shorter than ``min_obs`` (the paper's ten-observation rule)."""
+    if len(times) == 0:
+        return []
+    breaks = np.flatnonzero(np.diff(times) > gap_s) + 1
+    out = []
+    for s, e in zip(np.r_[0, breaks], np.r_[breaks, len(times)]):
+        if e - s >= min_obs:
+            out.append(slice(int(s), int(e)))
+    return out
+
+
+def _reject_store(path) -> None:
+    if is_store_uri(path):
+        raise NotImplementedError(
+            f"{path!r}: store:// input waits for the store slice of the "
+            f"port; process the zip archives instead")
+
+
+@dataclasses.dataclass
+class _SegRecord:
+    """One segment, flattened out of its archive for bucketed batching."""
+    arch: int               # archive index in the _process_many items
+    name: str
+    t: np.ndarray           # raw times, truncated to MAX_SEG_POINTS
+    lat: np.ndarray
+    lon: np.ndarray
+    alt: np.ndarray
+    n: int                  # valid knots
+    m: int                  # valid output grid points
+    width: int              # bucket width (>= max(n, m))
+    may_span: bool          # track may cross a reference DEM tile border
+
+
+class SegmentProcessor:
+    """Processes one organized/archived aircraft file into segments.
+
+    ``device=None`` runs on the card and raises if there is none;
+    ``device='cpu'`` runs the plain versions.  ``backend='ref'`` composes
+    the plain versions even on the card (the caller's explicit choice).
+    """
+
+    def __init__(self, dem: Optional[SyntheticGlobeDEM] = None,
+                 aerodromes: Optional[Sequence[Aerodrome]] = None, *,
+                 device=None, backend: str = "kernel",
+                 pipeline: str = "fused"):
+        dem = dem or SyntheticGlobeDEM()
+        aerodromes = list(aerodromes or [])
+        self._init({
+            "elevation_m": dem.elevation_m,
+            "grid": (dem.lat_min, dem.lat_max, dem.lon_min, dem.lon_max,
+                     dem.cells_per_deg),
+            "aero_lat": np.array([a.lat for a in aerodromes]),
+            "aero_lon": np.array([a.lon for a in aerodromes]),
+            "aero_cls": [a.airspace_class for a in aerodromes],
+        }, device, backend, pipeline)
+
+    @classmethod
+    def from_state(cls, state: dict, *, device=None, backend: str = "kernel",
+                   pipeline: str = "fused") -> "SegmentProcessor":
+        """A processor on given device state: ``elevation_m`` (H, W),
+        ``grid`` (lat_min, lat_max, lon_min, lon_max, cells_per_deg) and
+        the aerodrome table ``aero_lat``/``aero_lon``/``aero_cls``."""
+        proc = cls.__new__(cls)
+        proc._init(state, device, backend, pipeline)
+        return proc
+
+    def _init(self, state: dict, device, backend: str,
+              pipeline: str) -> None:
+        if pipeline not in ("fused", "unfused"):
+            raise ValueError(f"unknown pipeline {pipeline!r}")
+        if backend not in ops.BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}")
+        self.device = ops.resolve_device(device)
+        self.backend = backend
+        self.pipeline = pipeline
+        self._dem_f32 = np.ascontiguousarray(state["elevation_m"],
+                                             np.float32)
+        self._dem_grid = tuple(float(g) for g in state["grid"])
+        self._aero_lat = np.asarray(state["aero_lat"], np.float64)
+        self._aero_lon = np.asarray(state["aero_lon"], np.float64)
+        self._aero_cls = list(state["aero_cls"])
+        self.last_stats: dict = {}
+        self._dem_lock = threading.Lock()
+        self._dem_dev: dict = {}         # device -> DEM tensor
+
+    def __getstate__(self) -> dict:
+        # A worker process rebuilds its own device copy (and lock).
+        state = dict(self.__dict__)
+        state["_dem_lock"] = None
+        state["_dem_dev"] = {}
+        return state
+
+    def __setstate__(self, state: dict) -> None:
+        self.__dict__.update(state)
+        self._dem_lock = threading.Lock()
+
+    def dem_tensor(self) -> torch.Tensor:
+        """The DEM on this processor's device, copied there once (thread
+        workers share one processor)."""
+        with self._dem_lock:
+            dem = self._dem_dev.get(self.device)
+            if dem is None:
+                dem = torch.from_numpy(self._dem_f32).to(self.device)
+                self._dem_dev[self.device] = dem
+            return dem
+
+    # -- io -------------------------------------------------------------
+
+    def __call__(self, task: Task):
+        return self.process_file(task.payload or task.task_id)
+
+    def read_observations(self, path: str) -> dict[str, np.ndarray]:
+        """One source -> observation dict (a CSV path or a zip archive)."""
+        _reject_store(path)
+        return read_observations(path)
+
+    # -- processing -------------------------------------------------------
+
+    def process_file(self, path: str) -> ProcessedSegments:
+        obs = self.read_observations(path)
+        if not obs:
+            return _empty()
+        segs = split_segments(obs["time"])
+        if not segs:
+            return _empty()
+        return self.process_arrays(obs, segs)
+
+    def process_arrays(self, obs: dict[str, np.ndarray],
+                       segs: list[slice]) -> ProcessedSegments:
+        return self._process_many([(obs, segs)])[0]
+
+    def process_batch(self, tasks: Sequence[Task]) -> dict:
+        """Runtime batch hook: one multi-task ASSIGN message -> bucketed
+        pipeline calls over every segment of every source in the batch,
+        instead of per-task Python dispatch.  Returns
+        ``{task_id: ProcessedSegments}`` (what the worker reports DONE).
+        """
+        out: dict[str, ProcessedSegments] = {}
+        items: list[tuple[dict, list[slice]]] = []
+        slots: list[tuple[str, int]] = []
+        for task in tasks:
+            obs = self.read_observations(task.payload or task.task_id)
+            segs = split_segments(obs["time"]) if obs else []
+            if segs:
+                slots.append((task.task_id, len(items)))
+                items.append((obs, segs))
+            else:
+                out[task.task_id] = _empty()
+        if items:
+            processed = self._process_many(items)
+            for task_id, idx in slots:
+                out[task_id] = processed[idx]
+        return out
+
+    def _process_many(self, items: list[tuple[dict, list[slice]]]
+                      ) -> list[ProcessedSegments]:
+        if self.pipeline == "unfused":
+            return self._process_many_unfused(items)
+        return self._process_many_fused(items)
+
+    # -- fused, length-bucketed path --------------------------------------
+
+    # Conservative guard band (in DEM cells) added to the host-side
+    # tile-span check, as in the reference.
+    _SPAN_MARGIN = 0.5
+
+    def _may_span(self, lat: np.ndarray, lon: np.ndarray) -> bool:
+        """Can this track's DEM window cross a reference tile border?
+        Interp output is a convex combination of the knots, so knot
+        extents bound it.  Only the bucket key reads it."""
+        lat_min, lat_max, lon_min, lon_max, cpd = self._dem_grid
+        H, W = self._dem_f32.shape
+
+        def axis_spans(v, lo, hi, cells, tile):
+            f0 = (min(max(float(v.min()), lo), hi) - lo) * cpd
+            f1 = (min(max(float(v.max()), lo), hi) - lo) * cpd
+            f0 = min(max(f0, 0.0), cells - 1.001)
+            f1 = min(max(f1, 0.0), cells - 1.001)
+            origin = (f0 // tile) * tile
+            return (f1 - origin) >= tile - 1 - self._SPAN_MARGIN
+
+        return (axis_spans(lat, lat_min, lat_max, H, TILE_H)
+                or axis_spans(lon, lon_min, lon_max, W, TILE_W))
+
+    def _records(self, items: list[tuple[dict, list[slice]]]
+                 ) -> list[_SegRecord]:
+        records: list[_SegRecord] = []
+        for ai, (obs, segs) in enumerate(items):
+            for s in segs:
+                n, m = segment_shape(obs["time"], s)
+                sl = slice(s.start, s.start + n)
+                t = obs["time"][sl]
+                lat, lon = obs["lat"][sl], obs["lon"][sl]
+                records.append(_SegRecord(
+                    arch=ai, name=str(obs["icao24"][s.start]), t=t,
+                    lat=lat, lon=lon, alt=obs["alt"][sl], n=n, m=m,
+                    width=bucket_width(max(n, m)),
+                    may_span=self._may_span(lat, lon)))
+        return records
+
+    def _process_many_fused(self, items: list[tuple[dict, list[slice]]]
+                            ) -> list[ProcessedSegments]:
+        """Bucketed ragged batching: flatten every archive's segments,
+        bin them by power-of-two width, run ONE pipeline call per
+        bucket, then reassemble rows into per-archive planes."""
+        records = self._records(items)
+        # The bucket key keeps the reference's may-span flag, so the
+        # plan (and pipeline_calls) is the reference's.
+        buckets: dict[tuple[int, bool], list[int]] = {}
+        for gi, rec in enumerate(records):
+            buckets.setdefault((rec.width, rec.may_span), []).append(gi)
+
+        dem = self.dem_tensor()
+        planes: dict[int, np.ndarray] = {}        # gi -> (9, width) rows
+        allocated = 0
+        for width, may_span in sorted(buckets):
+            idxs = buckets[(width, may_span)]
+            bk = len(idxs)
+            bp = _round_rows(bk)
+            allocated += bp * width
+            # The knot axis gets its own (smaller) 128-multiple width:
+            # raw observations are ~5-8x sparser than the 1 Hz grid.
+            kn = -(-max(records[gi].n for gi in idxs) // 128) * 128
+            t_in = np.zeros((bp, kn), np.float32)
+            v_in = np.zeros((bp, 3, kn), np.float32)
+            count_in = np.full((bp,), 2, np.int32)
+            t_out = np.zeros((bp, width), np.float32)
+            count_out = np.ones((bp,), np.int32)
+            # Benign padding rows: strictly increasing knots, zero values.
+            t_in[bk:] = np.arange(kn, dtype=np.float32)[None, :]
+            for r, gi in enumerate(idxs):
+                rec = records[gi]
+                n, m = rec.n, rec.m
+                t0 = rec.t[0]
+                t_in[r, :n] = rec.t - t0
+                t_in[r, n:] = (rec.t[-1] - t0) + np.arange(1, kn - n + 1)
+                v_in[r, 0, :n] = rec.lat
+                v_in[r, 1, :n] = rec.lon
+                v_in[r, 2, :n] = rec.alt
+                # hold last value through padding (keeps interp defined)
+                v_in[r, :, n:] = v_in[r, :, n - 1:n]
+                count_in[r] = n
+                t_out[r, :m] = np.arange(m) * RESAMPLE_DT_S
+                t_out[r, m:] = t_out[r, m - 1]
+                count_out[r] = m
+            out = ops.process_segments(
+                dem, t_in, v_in, count_in, t_out, count_out,
+                grid=self._dem_grid, dt=RESAMPLE_DT_S,
+                backend=self.backend, agl_oracle=may_span)
+            # ONE device->host fetch per bucket — the pipeline's only
+            # downward transfer.
+            host = out.cpu().numpy()
+            for r, gi in enumerate(idxs):
+                planes[gi] = host[:, r]
+
+        # Airspace class for every segment in one vectorized query.
+        lat0 = np.array([planes[gi][1, 0] for gi in range(len(records))])
+        lon0 = np.array([planes[gi][2, 0] for gi in range(len(records))])
+        airspace = self._airspace_classes(lat0, lon0)
+
+        valid = sum(rec.m for rec in records)
+        bucket_rows: dict[int, int] = {}
+        for (width, _), ix in buckets.items():
+            bucket_rows[int(width)] = bucket_rows.get(int(width), 0) \
+                + len(ix)
+        self.last_stats = _pipeline_stats(
+            "fused", self.backend, len(records), int(valid),
+            int(allocated), bucket_rows, len(buckets))
+
+        out_list: list[ProcessedSegments] = []
+        gi = 0
+        for ai, (_, segs) in enumerate(items):
+            rows = list(range(gi, gi + len(segs)))
+            gi += len(segs)
+            if not rows:
+                out_list.append(_empty())
+                continue
+            wmax = max(records[r].width for r in rows)
+            fields = {attr: np.zeros((len(rows), wmax), np.float32)
+                      for _, attr in _PLANE_ATTRS}
+            for b, r in enumerate(rows):
+                w = records[r].width
+                for k, (_, attr) in enumerate(_PLANE_ATTRS):
+                    fields[attr][b, :w] = planes[r][k]
+            out_list.append(ProcessedSegments(
+                icao24=[records[r].name for r in rows],
+                count=np.array([records[r].m for r in rows], np.int32),
+                airspace=[airspace[r] for r in rows],
+                **fields))
+        return out_list
+
+    # -- unfused baseline (three launches + host hops) --------------------
+
+    def _process_many_unfused(self, items: list[tuple[dict, list[slice]]]
+                              ) -> list[ProcessedSegments]:
+        """The historical path: one fixed (B, 1024) tile padded to the
+        global max length, three separate kernel launches with host
+        numpy in between.  Kept as the measured baseline."""
+        B = sum(len(segs) for _, segs in items)
+        N = max(s.stop - s.start for _, segs in items for s in segs)
+        N = min(max(N, MIN_OBS_PER_SEGMENT), MAX_SEG_POINTS)
+        M = MAX_SEG_POINTS
+        t_in = np.zeros((B, N), np.float32)
+        v_in = np.zeros((B, 3, N), np.float32)
+        count_in = np.zeros((B,), np.int32)
+        t_out = np.zeros((B, M), np.float32)
+        count_out = np.zeros((B,), np.int32)
+        names = []
+        b = 0
+        for obs, segs in items:
+            for s in segs:
+                t = obs["time"][s][:N]
+                n = len(t)
+                t0 = t[0]
+                t_in[b, :n] = t - t0
+                t_in[b, n:] = (t[-1] - t0) + np.arange(1, N - n + 1)
+                v_in[b, 0, :n] = obs["lat"][s][:N]
+                v_in[b, 1, :n] = obs["lon"][s][:N]
+                v_in[b, 2, :n] = obs["alt"][s][:N]
+                # hold last value through padding (keeps interp well-defined)
+                v_in[b, :, n:] = v_in[b, :, n - 1:n]
+                count_in[b] = n
+                dur = t[-1] - t0
+                m = min(int(dur / RESAMPLE_DT_S) + 1, M)
+                t_out[b, :m] = np.arange(m) * RESAMPLE_DT_S
+                t_out[b, m:] = t_out[b, m - 1]
+                count_out[b] = m
+                names.append(str(obs["icao24"][s.start]))
+                b += 1
+
+        dev = self.device
+
+        def up(x):
+            return torch.from_numpy(x).to(dev)
+
+        interp = ops.track_interp(up(t_in), up(v_in), up(count_in),
+                                  up(t_out), backend=self.backend)
+        interp = interp.cpu().numpy()
+        ops.note_intermediate_transfer()          # device->host: interp
+        lat, lon, alt = interp[:, :, 0], interp[:, :, 1], interp[:, :, 2]
+
+        # AGL via DEM (fractional indices from the DEM's affine grid).
+        lat_min, lat_max, lon_min, lon_max, cpd = self._dem_grid
+        fi = (np.clip(lat, lat_min, lat_max) - lat_min) * cpd
+        fj = (np.clip(lon, lon_min, lon_max) - lon_min) * cpd
+        ops.note_intermediate_transfer()          # host->device: fi/fj/alt
+        agl = ops.agl_lookup(self.dem_tensor(), up(fi), up(fj),
+                             up(np.ascontiguousarray(alt)),
+                             backend=self.backend).cpu().numpy()
+        ops.note_intermediate_transfer()          # device->host: agl
+
+        v_grid = np.stack([lat, lon, alt], axis=1).astype(np.float32)
+        rates = ops.dynamic_rates(up(v_grid), up(count_out), RESAMPLE_DT_S,
+                                  backend=self.backend).cpu().numpy()
+        ops.note_intermediate_transfer()          # device->host: rates
+
+        airspace = self._airspace_classes(lat[:, 0], lon[:, 0])
+        mask = (np.arange(M)[None, :] < count_out[:, None])
+        times = t_out * mask
+        lat_m, lon_m, alt_m, agl_m = (lat * mask, lon * mask, alt * mask,
+                                      agl * mask)
+        vr, gs, hd, tr = (rates[:, 0] * mask, rates[:, 1] * mask,
+                          rates[:, 2] * mask, rates[:, 3] * mask)
+
+        self.last_stats = _pipeline_stats(
+            "unfused", self.backend, B, int(count_out.sum()), int(B * M),
+            {M: B}, 3)
+
+        out: list[ProcessedSegments] = []
+        off = 0
+        for _, segs in items:
+            sl = slice(off, off + len(segs))
+            out.append(ProcessedSegments(
+                icao24=names[sl],
+                times=times[sl],
+                lat=lat_m[sl], lon=lon_m[sl],
+                alt_msl_m=alt_m[sl], alt_agl_m=agl_m[sl],
+                vrate_ms=vr[sl], gspeed_ms=gs[sl],
+                heading_rad=hd[sl], turn_rad_s=tr[sl],
+                count=count_out[sl], airspace=airspace[sl]))
+            off += len(segs)
+        return out
+
+    # -- airspace ---------------------------------------------------------
+
+    def _airspace_classes(self, lat0: np.ndarray,
+                          lon0: np.ndarray) -> list[str]:
+        """Class of the nearest aerodrome within the terminal radius for
+        every segment at once (one (B, A) argmin), else 'G' (uncontrolled,
+        below Class E floors — good enough a proxy)."""
+        lat0 = np.atleast_1d(np.asarray(lat0, np.float64))
+        lon0 = np.atleast_1d(np.asarray(lon0, np.float64))
+        if not self._aero_cls:
+            return ["G"] * len(lat0)
+        d2 = ((self._aero_lat[None, :] - lat0[:, None]) ** 2
+              + ((self._aero_lon[None, :] - lon0[:, None])
+                 * np.cos(np.deg2rad(lat0))[:, None]) ** 2)
+        nearest = np.argmin(d2, axis=1)
+        best = d2[np.arange(len(lat0)), nearest]
+        return [self._aero_cls[i] if b <= RADIUS_DEG ** 2 else "G"
+                for i, b in zip(nearest, best)]
+
+
+def _pipeline_stats(pipeline: str, backend: str, n_segments: int,
+                    valid: int, allocated: int, bucket_rows: dict,
+                    pipeline_calls: int) -> dict:
+    """Padding accounting for one ``_process_many`` batch.
+
+    ``padded_fraction`` is the padding-to-payload ratio — padded output
+    elements per *valid* output element (0 = no padding; this is the
+    quantity that multiplies wasted kernel compute).  ``padded_share``
+    is the share of the allocated tile that is padding (in [0, 1))."""
+    padded = allocated - valid
+    return {
+        "pipeline": pipeline, "backend": backend,
+        "n_segments": n_segments, "valid_points": valid,
+        "allocated_points": allocated,
+        "padded_fraction": padded / valid if valid else 0.0,
+        "padded_share": padded / allocated if allocated else 0.0,
+        "bucket_rows": bucket_rows,
+        "pipeline_calls": pipeline_calls,
+    }
+
+
+def _empty() -> ProcessedSegments:
+    z = np.zeros((0, BUCKET_SIZES[0]), np.float32)
+    return ProcessedSegments(
+        icao24=[], times=z, lat=z, lon=z, alt_msl_m=z, alt_agl_m=z,
+        vrate_ms=z, gspeed_ms=z, heading_rad=z, turn_rad_s=z,
+        count=np.zeros((0,), np.int32), airspace=[])
+
+
+def segment_tasks_from_archive_tree(archive_root: str) -> list[Task]:
+    """One Task per aircraft .zip archive."""
+    tasks = []
+    for dirpath, _dirnames, filenames in os.walk(archive_root):
+        for f in filenames:
+            if f.endswith(".zip"):
+                p = os.path.join(dirpath, f)
+                tasks.append(Task(
+                    task_id=os.path.relpath(p, archive_root),
+                    size_bytes=os.path.getsize(p),
+                    payload=p))
+    tasks.sort(key=lambda t: t.task_id)
+    return tasks

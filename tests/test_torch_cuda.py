@@ -1,0 +1,174 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: each test skips when no CUDA device is present, so on
+a CPU-only machine they count as skipped.  On the card:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+This file imports no JAX (the card's machine has none); the plain
+versions were checked against JAX in tests/test_torch_kernels.py.
+"""
+
+import json
+import math
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import agl_lookup as agl_mod
+from repro_torch.kernels import dynamic_rates as rates_mod
+from repro_torch.kernels import ref
+from repro_torch.kernels import track_interp as interp_mod
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _tracks(B, N, C, M, seed):
+    rng = np.random.default_rng(seed)
+    t_in = np.sort(rng.uniform(0, 900, (B, N)), axis=1).astype(np.float32)
+    count = rng.integers(2, N + 1, size=B).astype(np.int32)
+    for b in range(B):
+        c = count[b]
+        t_in[b, c:] = t_in[b, c - 1] + np.arange(1, N - c + 1)
+    v_in = rng.normal(size=(B, C, N)).astype(np.float32)
+    t_out = rng.uniform(-100, 1000, (B, M)).astype(np.float32)
+    return t_in, v_in, count, t_out
+
+
+def test_kernels_take_more_rows_than_grid_y_allows(dev):
+    # 70000 rows is past CUDA's 65535 limit on grid.y; rows ride on grid.x.
+    B, N, C, M = 70_000, 8, 3, 16
+    args = [torch.from_numpy(x).to(dev) for x in _tracks(B, N, C, M, 5)]
+    torch.testing.assert_close(interp_mod.track_interp(*args),
+                               ref.track_interp_ref(*args),
+                               rtol=1e-5, atol=1e-4)
+    rng = np.random.default_rng(6)
+    v = np.zeros((B, 3, M), np.float32)
+    v[:, 0] = 40 + np.cumsum(rng.normal(0, 1e-4, (B, M)), axis=1)
+    v[:, 1] = -100 + np.cumsum(rng.normal(0, 1e-4, (B, M)), axis=1)
+    v[:, 2] = 1000 + np.cumsum(rng.normal(0, 2, (B, M)), axis=1)
+    count = rng.integers(0, M + 1, size=B).astype(np.int32)
+    v, count = torch.from_numpy(v).to(dev), torch.from_numpy(count).to(dev)
+    got = rates_mod.dynamic_rates(v, count, 1.0)
+    want = ref.dynamic_rates_ref(v, count, 1.0)
+    heading = (got[:, 2].double() - want[:, 2].double() + math.pi) \
+        % (2 * math.pi) - math.pi
+    assert heading.abs().max().item() <= 1e-3
+    for c in (0, 1, 3):
+        torch.testing.assert_close(got[:, c], want[:, c], rtol=1e-4,
+                                   atol=1e-3)
+
+
+@pytest.mark.parametrize("B,N,C,M", [
+    (1, 16, 1, 32), (3, 100, 3, 257), (4, 300, 2, 64), (64, 128, 3, 1024),
+])
+def test_track_interp_kernel(dev, B, N, C, M):
+    args = [torch.from_numpy(x).to(dev) for x in _tracks(B, N, C, M, B + M)]
+    before = interp_mod.launches
+    got = interp_mod.track_interp(*args)
+    torch.cuda.synchronize()
+    assert interp_mod.launches == before + 1
+    want = ref.track_interp_ref(*args)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    knots = interp_mod.track_interp(args[0], args[1], args[2], args[0])
+    torch.testing.assert_close(knots, ref.track_interp_ref(
+        args[0], args[1], args[2], args[0]), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("B,M", [(1, 16), (3, 240), (5, 100), (64, 1024)])
+def test_dynamic_rates_kernel(dev, B, M):
+    rng = np.random.default_rng(B * 11 + M)
+    v = np.zeros((B, 3, M), np.float32)
+    v[:, 0] = 40 + np.cumsum(rng.normal(0, 1e-4, (B, M)), axis=1)
+    v[:, 1] = -100 + np.cumsum(rng.normal(0, 1e-4, (B, M)), axis=1)
+    v[:, 2] = 1000 + np.cumsum(rng.normal(0, 2, (B, M)), axis=1)
+    count = rng.integers(0, M + 1, size=B).astype(np.int32)
+    v, count = torch.from_numpy(v).to(dev), torch.from_numpy(count).to(dev)
+    got = rates_mod.dynamic_rates(v, count, 1.0)
+    want = ref.dynamic_rates_ref(v, count, 1.0)
+    heading = (got[:, 2].double() - want[:, 2].double() + math.pi) \
+        % (2 * math.pi) - math.pi
+    assert heading.abs().max().item() <= 1e-3
+    for c in (0, 1, 3):
+        torch.testing.assert_close(got[:, c], want[:, c], rtol=1e-4,
+                                   atol=1e-3)
+
+
+@pytest.mark.parametrize("B,M,H,W", [
+    (1, 16, 64, 64), (3, 300, 200, 400), (8, 1024, 3121, 7081),
+])
+def test_agl_lookup_kernel(dev, B, M, H, W):
+    rng = np.random.default_rng(B + M)
+    dem = torch.from_numpy(
+        rng.uniform(0, 3000, (H, W)).astype(np.float32)).to(dev)
+    fi, fj, alt = (torch.from_numpy(x.astype(np.float32)).to(dev) for x in (
+        rng.uniform(-2, H + 1, (B, M)), rng.uniform(-2, W + 1, (B, M)),
+        rng.uniform(0, 4000, (B, M))))
+    got = agl_mod.agl_lookup(dem, fi, fj, alt)
+    want = ref.agl_lookup_ref(dem, fi, fj, alt)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-2)
+
+
+def test_segment_processor_card_matches_cpu(dev, tmp_path):
+    from repro_torch.geometry.aerodromes import synthetic_aerodromes
+    from repro_torch.tracks.segments import (
+        SegmentProcessor, segment_tasks_from_archive_tree)
+    from repro_torch.tracks.workflow import TrackWorkflow
+    wf = TrackWorkflow(str(tmp_path), n_workers=2, device="cpu")
+    wf.generate_raw(n_files=2, scale=2e4)
+    wf.run()
+    tasks = segment_tasks_from_archive_tree(wf.archive_dir)
+    aero = synthetic_aerodromes(n=64)
+    got = SegmentProcessor(aerodromes=aero).process_batch(tasks)
+    want = SegmentProcessor(aerodromes=aero,
+                            device="cpu").process_batch(tasks)
+    # Both sides run the same f32 operations (no FMA); only cosf/atan2f
+    # ulps differ between the CUDA and CPU math libraries.
+    for tid, w in want.items():
+        g = got[tid]
+        assert g.icao24 == w.icao24 and g.airspace == w.airspace
+        np.testing.assert_array_equal(g.count, w.count)
+        for attr in ("times", "lat", "lon", "alt_msl_m", "alt_agl_m",
+                     "vrate_ms", "gspeed_ms", "turn_rad_s"):
+            np.testing.assert_allclose(getattr(g, attr), getattr(w, attr),
+                                       rtol=1e-6, atol=1e-4, err_msg=attr)
+        d = np.angle(np.exp(1j * (g.heading_rad.astype(np.float64)
+                                  - w.heading_rad)))
+        assert np.abs(d).max(initial=0.0) <= 1e-4
+
+
+def test_workflow_processes_backend_forks_workers_onto_card(dev, tmp_path):
+    # A fresh interpreter: the parent checks for the card without starting
+    # CUDA, so its workers are forked and each opens the card itself.
+    code = (
+        "import json, sys, torch\n"
+        "from repro_torch.runtime import transports\n"
+        "from repro_torch.tracks.workflow import TrackWorkflow\n"
+        "wf = TrackWorkflow(sys.argv[1], n_workers=2,\n"
+        "                   exec_backend='processes', device='cuda')\n"
+        "wf.generate_raw(n_files=2, scale=2e4)\n"
+        "assert transports._default_start_method() == 'fork'\n"
+        "reports = wf.run()\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "print(json.dumps([[r.phase, r.tasks] for r in reports]))\n")
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         capture_output=True, text=True, env=env,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    phases = json.loads(out.stdout.strip().splitlines()[-1])
+    assert [p for p, _ in phases] == ["organize", "archive", "process"]
+    assert phases[-1][1] > 0
