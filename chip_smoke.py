@@ -8,15 +8,18 @@ and the CUDA toolkit:
 
 Phases, each printed as it runs:
 
-1. build   — compile ``src/repro_torch/kernels/csrc/*.cu`` with nvcc for
-             sm_90a; print the build time, ptxas' register counts, and
-             the card's name and power limit.
+1. build   — compile ``src/repro_torch/kernels/csrc/*.cu`` (four
+             kernels, one nvcc each, all started together) for sm_90a;
+             print the build time, ptxas' registers and shared memory
+             per kernel, and the card's name and power limit.
 2. kernels — hold each CUDA kernel against its plain PyTorch version on
              the card at the process phase's shapes (B = 1024 rows,
              N = 128 knots, M in {128, 256, 512, 1024}; the AGL gather
              on the 30-arc-second GLOBE-resolution DEM, 3121 x 7081 f32)
-             and time kernel, plain version and, where one exists, the
-             single PyTorch call computing the same function.
+             and the encounter screen at (C, K, T) cell batches up to
+             K = 240 rows and T = 4608 samples, and time kernel, plain
+             version and, where one exists, the single PyTorch call
+             computing the same function.
 3. workflow— the port's TrackWorkflow end to end on the card (threads,
              8 workers, 4 tasks per message, 8 raw files at scale 500),
              with every kernel's launch counter zeroed just before and
@@ -26,6 +29,14 @@ Phases, each printed as it runs:
              (plain versions), compared within 1e-4 (both sides run the
              same f32 operations), with the host parse timed apart from
              the pipeline.
+5. screen  — the port's TrackWorkflow(input="store", screen=True) on the
+             card (threads, 8 workers, 4 tasks per message, 8192 points
+             per shard, the same 8 raw files), with all four launch
+             counters zeroed just before and read just after; the
+             candidates held against the brute-force screen over the
+             same store-derived rows and against the screen tasks re-run
+             on the CPU, and the store path's process phase held
+             against the zip path's, bitwise.
 
 The line before the last is the card's name and power limit; before it
 one JSON object lists every kernel with its timings.  The last line is
@@ -56,7 +67,29 @@ TIMED_RUNS = 30
 # Tolerances of the parity tests (tests/test_kernels.py and
 # tests/test_segment_pipeline.py); headings compare as wrapped angles.
 TOL = {"track_interp": (1e-5, 1e-4), "agl_lookup": (1e-4, 1e-2),
-       "dynamic_rates": (1e-4, 1e-3)}
+       "dynamic_rates": (1e-4, 1e-3), "encounter_screen": (1e-5, 1e-2)}
+# Encounter-screen cell batches (C cells, K rows, T samples): many small
+# cells, mid-size, the densest cell the aerodrome_dense manifest gives
+# (237 rows, 240 padded), and that at an hour-long union grid.
+SCREEN_SHAPES = ((256, 8, 1024), (32, 64, 1024), (8, 240, 1024),
+                 (4, 240, 4608))
+SCREEN_H_M, SCREEN_V_M = 926.0, 152.4
+# f32 operations per jointly valid pair-sample (i < j), from
+# csrc/encounter_screen.cu: val product and its test (2), dn (2), mean
+# latitude and radians (3), cosf (1), de (3), dn^2 + de^2 (3), sqrtf (1),
+# dv (2), both thresholds (2), the strict-< minimum test (1), the dv
+# minimum (1).  cosf and sqrtf count as one operation each, and a pair-
+# sample that is not jointly valid needs none of them, so the bound
+# counts this run's jointly valid pair-samples only: a floor.
+SCREEN_OPS_PER_PAIR_SAMPLE = 22
+# Phase 5: the thresholds tests/test_workflow_screen.py calibrated so
+# the synthetic traffic co-bins, and the distance tolerance of its
+# brute-force comparison.
+SCREEN_WF = dict(screen_h_m=50_000.0, screen_v_m=1000.0,
+                 screen_cell_deg=1.0)
+CAND_ATOL_M = 1e-2
+# Screen tasks timed one after another, profiled, after the workflow.
+SCREEN_PROFILE_TASKS = 200
 # Card against CPU on the GLOBE batch: both run the same f32 operations
 # without FMA, so only cosf/atan2f ulps differ.  |card - CPU| must stay
 # within CARD_ATOL + CARD_RTOL * |CPU| on every plane (headings wrapped).
@@ -146,9 +179,15 @@ def phase_build() -> str:
     _build.lib()
     say("build", f"libkernels built in {_build.build_seconds:.2f}s "
                  f"(load {time.perf_counter() - t0:.2f}s) for sm_90a")
+    source = "?"
     for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line.lower():
-            say("build", "ptxas" + line.split("ptxas", 1)[-1])
+        if line.startswith("== "):
+            source = line[3:]
+        elif "registers" in line or "spill" in line.lower():
+            say("build", f"{source}: ptxas" + line.split("ptxas", 1)[-1])
+    n = len(_build._sources())
+    if n != 4 or "encounter_screen.cu" not in _build.build_log():
+        raise AssertionError(f"expected four kernel sources, built {n}")
     card = card_line()
     say("build", f"card: {card}")
     return card
@@ -174,7 +213,7 @@ def phase_kernels(globe_dem) -> dict:
                    f"{dem.numel() * 4 / 1e6:.1f} MB on the card")
     rng = np.random.default_rng(11)
     results = {name: {"per_width": {}, "max_abs_err": 0.0}
-               for name in TOL}
+               for name in ("track_interp", "agl_lookup", "dynamic_rates")}
     for W in WIDTHS:
         t_in, v_in, count_in, t_out, count_out = (
             torch.from_numpy(x).to(dev) for x in bucket_inputs(rng, W))
@@ -274,6 +313,93 @@ def phase_kernels(globe_dem) -> dict:
             results[name]["max_abs_err"] = max(
                 results[name]["max_abs_err"], row["max_abs_err"])
     return results
+
+
+def screen_cells(rng, C: int, K: int, T: int):
+    """C cells of K rows of 1 Hz trails clustered around one point per
+    cell (as tests/test_encounter_screen.py builds them, so a real share
+    of pairs hit), each row valid over a random span; as (C, K, T) f32
+    planes lat, lon, alt, val."""
+    import numpy as np
+    lat = (40.0 + rng.normal(0, 0.005, (C, K, 1))
+           + np.cumsum(rng.normal(0, 1e-4, (C, K, T)), axis=2))
+    lon = (-100.0 + rng.normal(0, 0.005, (C, K, 1))
+           + np.cumsum(rng.normal(0, 1e-4, (C, K, T)), axis=2))
+    alt = rng.uniform(400, 900, (C, K, 1)) + rng.normal(0, 5, (C, K, T))
+    start = rng.integers(0, T // 2, (C, K, 1))
+    end = rng.integers(T // 2, T + 1, (C, K, 1))
+    t = np.arange(T)[None, None, :]
+    val = (t >= start) & (t < end)
+    return [x.astype(np.float32) for x in (lat, lon, alt, val)]
+
+
+def phase_screen_kernels() -> dict:
+    """The encounter-screen kernel against its plain version, timed, at
+    every cell-batch shape."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import encounter_screen as screen
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(12)
+    rtol, atol = TOL["encounter_screen"]
+    res = {"per_shape": {}, "max_abs_err": 0.0}
+    for C, K, T in SCREEN_SHAPES:
+        args = [torch.from_numpy(x).to(dev)
+                for x in screen_cells(rng, C, K, T)]
+
+        def kernel():
+            return screen.encounter_screen(*args, h_m=SCREEN_H_M,
+                                           v_m=SCREEN_V_M)
+
+        def plain():
+            return screen._screen_batch_plain(*args, h_m=SCREEN_H_M,
+                                              v_m=SCREEN_V_M)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        hit = want[0] > 0.5
+        ok = (torch.equal(got[0], want[0])
+              and torch.equal(got[3][hit], want[3][hit]))
+        err = 0.0
+        for g, w in zip(got[1:3], want[1:3]):
+            d = (g[hit] - w[hit]).abs()
+            err = max(err, d.max().item() if d.numel() else 0.0)
+            ok = ok and bool((d <= atol + rtol * w[hit].abs()).all())
+        # No-hit entries (lower triangle and diagonal too) hold the
+        # reference's constants.
+        for g, fill in zip(got, (0.0, 1e30, 1e30, 0.0)):
+            ok = ok and bool((g[~hit] == torch.tensor(
+                fill, dtype=torch.float32, device=dev)).all())
+        bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
+        # Jointly valid pair-samples with i < j: n_t valid rows at an
+        # instant make n_t (n_t - 1) / 2 of them.
+        n_t = args[3].sum(dim=1).double()
+        valid_ps = float(((n_t * n_t - n_t) / 2).sum().item())
+        nbytes = 4 * C * K * T * 4 + 4 * C * K * K * 4
+        b_ms, b_by = bound(nbytes, valid_ps * SCREEN_OPS_PER_PAIR_SAMPLE)
+        runs = 10
+        row = {"ms": device_ms(kernel, runs=runs),
+               "plain_ms": device_ms(plain, runs=runs),
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+               "max_abs_err": err, "bitwise": bitwise,
+               "hits": int(hit.sum().item()),
+               "pairs": C * K * (K - 1) // 2,
+               "valid_pair_samples": valid_ps}
+        say("kernels", f"encounter_screen C={C} K={K} T={T}: "
+                       f"{row['hits']} of {row['pairs']} pairs hit, "
+                       f"{valid_ps:.0f} jointly valid pair-samples; "
+                       f"max|diff| {err:.3g} (rtol {rtol}, atol {atol}), "
+                       f"bitwise {bitwise}; kernel {row['ms']:.4f} ms, "
+                       f"plain {row['plain_ms']:.4f} ms, library - ms, "
+                       f"bound {b_ms:.4f} ms ({b_by})")
+        if not ok:
+            raise AssertionError(
+                f"encounter_screen at C={C} K={K} T={T} disagrees with "
+                f"its plain version: max |diff| {err}")
+        res["per_shape"][f"{C}x{K}x{T}"] = row
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+    return res
 
 
 def phase_workflow() -> tuple[dict, str]:
@@ -411,6 +537,213 @@ def phase_globe(archive_dir: str, globe_dem) -> None:
         say("globe", "profiler saw no device time: idle share not measured")
 
 
+def brute_force_overlapping(rows, config) -> list:
+    """``brute_force_screen`` over every pair of rows that share an
+    instant, deduplicated: the all-pairs result, without the O(N^2 T)
+    global grid (782 rows over 8 hours would take minutes in numpy).
+    Rows that never share an instant are never jointly valid, and with
+    integer start times on the 1 s grid each pair's samples align
+    exactly as on the global grid, so the records are the same."""
+    from repro_torch.kernels.encounter_screen import (
+        brute_force_screen, dedup_candidates)
+    if config.dt_s != 1.0 or any(r.t0 != int(r.t0) for r in rows):
+        raise AssertionError("pairwise brute force needs integer start "
+                             "times on a 1 s grid")
+    rows = sorted(rows, key=lambda r: r.t0)
+    out = []
+    for a, ra in enumerate(rows):
+        end = ra.t0 + len(ra)
+        for rb in rows[a + 1:]:
+            if rb.t0 >= end:
+                break
+            out.extend(brute_force_screen([ra, rb], config=config))
+    return dedup_candidates(out)
+
+
+def same_candidates(got, want, what: str) -> float:
+    """Raise unless the pair sets and t_s are equal and h_m/v_m agree
+    within CAND_ATOL_M; return the largest distance difference."""
+    if [(c["a"], c["b"]) for c in got] != [(c["a"], c["b"]) for c in want]:
+        raise AssertionError(f"candidate pairs differ from {what}: "
+                             f"{len(got)} vs {len(want)}")
+    worst = 0.0
+    for g, w in zip(got, want):
+        if g["t_s"] != w["t_s"]:
+            raise AssertionError(f"{g['a']}/{g['b']}: t_s {g['t_s']} vs "
+                                 f"{w['t_s']} ({what})")
+        d = max(abs(g["h_m"] - w["h_m"]), abs(g["v_m"] - w["v_m"]))
+        worst = max(worst, d)
+        if d > CAND_ATOL_M:
+            raise AssertionError(f"{g['a']}/{g['b']}: distances differ by "
+                                 f"{d} m from {what}")
+    return worst
+
+
+def phase_screen_workflow() -> dict:
+    """organize -> archive -> store-build -> process -> screen on the
+    card, with every kernel's launch counter zeroed just before."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import agl_lookup, dynamic_rates, ops
+    from repro_torch.kernels import encounter_screen, track_interp
+    from repro_torch.runtime import run_job
+    from repro_torch.tracks.datasets import SCREEN_ROW_BYTES
+    from repro_torch.tracks.segments import (
+        SegmentProcessor, segment_tasks_from_archive_tree,
+        segment_tasks_from_store)
+    from repro_torch.tracks.workflow import (
+        ScreenWorker, TrackWorkflow, _screen_rows_for_uri)
+
+    root = WORK + "_screen"
+    shutil.rmtree(root, ignore_errors=True)
+    wf = TrackWorkflow(root, n_workers=8, tasks_per_message=4,
+                       poll_interval=0.005, device="cuda", input="store",
+                       store_target_points=8192, screen=True, **SCREEN_WF)
+    wf.generate_raw(n_files=8, scale=500)
+    mods = {"track_interp": track_interp, "agl_lookup": agl_lookup,
+            "dynamic_rates": dynamic_rates,
+            "encounter_screen": encounter_screen}
+    for mod in mods.values():
+        mod.launches = 0
+    ops.reset_pipeline_stats()
+    encounter_screen.reset_screen_stats()
+    t0 = time.perf_counter()
+    reports = wf.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: mod.launches for name, mod in mods.items()}
+    stats = ops.get_pipeline_stats()
+    sstats = encounter_screen.get_screen_stats()
+    for r in reports:
+        say("screen", f"{r.phase:11s}: {r.tasks:5d} tasks on {r.workers} "
+                      f"threads workers in {r.job_seconds:.3f}s "
+                      f"({r.messages} messages)")
+    with open(wf.candidates_path) as f:
+        got = json.load(f)["candidates"]
+    tasks = wf._screen_tasks_full()
+    occupancy = [t.size_bytes // SCREEN_ROW_BYTES for t in tasks]
+    say("screen", f"end to end {wall:.3f}s; {sstats['cells_screened']} "
+                  f"cells screened ({sstats['pairs_screened']} pairs, "
+                  f"{sstats['kernel_calls']} screen calls), largest "
+                  f"occupancy {max(occupancy)}, {len(got)} candidates; "
+                  f"launches {launches}; pipeline stats {stats}")
+    phases = [r.phase for r in reports]
+    if phases != ["organize", "archive", "store-build", "process",
+                  "screen"]:
+        raise AssertionError(f"phases ran: {phases}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"the workflow bypassed a kernel: {launches}")
+    if stats["intermediate_transfers"] != 0:
+        raise AssertionError(f"fused path crossed the host: {stats}")
+    if not got:
+        raise AssertionError("the screen found no candidates")
+
+    # The rows the screen saw, from the store, on the card and on the
+    # CPU: the resampled planes agree bitwise, so only the screen's
+    # cosf can tell the two sides apart.
+    gpu = SegmentProcessor(device="cuda")
+    cpu = SegmentProcessor(device="cpu")
+    shards = segment_tasks_from_store(wf.store_dir, granularity="shard")
+    rows = [r for t in shards for r in _screen_rows_for_uri(gpu, t.payload)]
+    rows_cpu = [r for t in shards
+                for r in _screen_rows_for_uri(cpu, t.payload)]
+    for a, b in zip(rows, rows_cpu):
+        if a.row_id != b.row_id or not all(
+                np.array_equal(getattr(a, k), getattr(b, k))
+                for k in ("lat", "lon", "alt")):
+            raise AssertionError(f"{a.row_id}: card and CPU planes differ")
+    if len(rows) != len(rows_cpu):
+        raise AssertionError("card and CPU rows differ in number")
+    t0 = time.perf_counter()
+    want = brute_force_overlapping(rows, wf.screen_config)
+    bf_s = time.perf_counter() - t0
+    d_bf = same_candidates(got, want, "brute force")
+
+    # The screen tasks re-run on the CPU (plain versions), 8 processes.
+    cpu_worker = ScreenWorker(wf.store_dir, h_thresh_m=wf.screen_config.h_thresh_m,
+                              v_thresh_m=wf.screen_config.v_thresh_m,
+                              device="cpu")
+    t0 = time.perf_counter()
+    res = run_job(tasks, cpu_worker, backend="processes", n_workers=8,
+                  tasks_per_message=4, poll_interval=0.005)
+    cpu_s = time.perf_counter() - t0
+    cpu_cands = encounter_screen.dedup_candidates(
+        c for t in tasks for c in res.results[t.task_id]["candidates"])
+    d_cpu = same_candidates(got, cpu_cands, "the CPU re-run")
+    say("screen", f"{len(rows)} rows; candidates = brute force over "
+                  f"overlapping pairs ({bf_s:.2f}s, max |d| {d_bf:.3g} m) "
+                  f"= CPU re-run of {len(tasks)} screen tasks on 8 "
+                  f"processes ({cpu_s:.2f}s, max |d| {d_cpu:.3g} m); "
+                  f"row planes card = CPU bitwise")
+
+    # The store path's process phase against the zip path's, on the card.
+    by_track = gpu.process_batch(
+        segment_tasks_from_store(wf.store_dir, granularity="track"))
+    by_zip = gpu.process_batch(
+        segment_tasks_from_archive_tree(wf.archive_dir))
+    if sorted(by_track) != sorted(by_zip):
+        raise AssertionError("store and zip task ids differ")
+    for tid, z in by_zip.items():
+        g = by_track[tid]
+        if g.icao24 != z.icao24 or g.airspace != z.airspace or not all(
+                np.array_equal(getattr(g, k), getattr(z, k))
+                for k in ("count", "times", "lat", "lon", "alt_msl_m",
+                          "alt_agl_m", "vrate_ms", "gspeed_ms",
+                          "heading_rad", "turn_rad_s")):
+            raise AssertionError(f"{tid}: store and zip paths differ")
+    say("screen", f"store path = zip path bitwise over {len(by_zip)} "
+                  f"tracks on the card")
+    profile_screen_tasks(wf, tasks[:SCREEN_PROFILE_TASKS])
+    return launches
+
+
+def profile_screen_tasks(wf, tasks) -> None:
+    """Where a screen task's time goes: ``tasks`` run one after another
+    on the card under cProfile (the host split between the store reads,
+    the per-track segment pipeline and the cell screen) and
+    torch.profiler (device busy time, hence the idle share)."""
+    import cProfile
+    import pstats
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.tracks.workflow import ScreenWorker
+
+    worker = ScreenWorker(wf.store_dir,
+                          h_thresh_m=wf.screen_config.h_thresh_m,
+                          v_thresh_m=wf.screen_config.v_thresh_m,
+                          device="cuda")
+    worker(tasks[0])                            # processor, DEM upload
+    host = cProfile.Profile()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        host.enable()
+        for t in tasks:
+            worker(t)
+        torch.cuda.synchronize()
+        host.disable()
+        wall = time.perf_counter() - t0
+    cum = {}
+    for (path, _line, name), row in pstats.Stats(host).stats.items():
+        key = (os.path.basename(path), name)
+        cum[key] = cum.get(key, 0.0) + row[3]
+    split = {"store reads": cum.get(("segments.py", "read_observations"), 0),
+             "segment pipeline": cum.get(("segments.py", "process_arrays"), 0),
+             "cell screen": cum.get(("encounter_screen.py", "screen_cells"), 0)}
+    cuda = torch.autograd.DeviceType.CUDA
+    busy = sum(getattr(e, "self_device_time_total", 0.0)
+               for e in prof.key_averages()
+               if getattr(e, "device_type", None) == cuda) / 1e6
+    say("screen", f"{len(tasks)} screen tasks one after another on the "
+                  f"card, profiled: {wall:.3f}s wall "
+                  f"({wall / len(tasks) * 1e3:.2f} ms a task); host split "
+                  + ", ".join(f"{k} {v:.3f}s ({v / wall:.2f})"
+                              for k, v in split.items())
+                  + (f"; device busy {busy:.4f}s (idle share "
+                     f"{1 - busy / wall:.4f})" if busy > 0 else
+                     "; profiler saw no device time: idle share not "
+                     "measured"))
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke.py: src/repro_torch is missing; run it from "
@@ -436,16 +769,21 @@ def main() -> int:
     say("setup", f"GLOBE-resolution DEM generated in "
                  f"{time.perf_counter() - t0:.2f}s")
     results = phase_kernels(globe)
+    screen = phase_screen_kernels()
     launches, archive_dir = phase_workflow()
     phase_globe(archive_dir, globe)
+    screen_launches = phase_screen_workflow()
 
     from repro_torch.kernels import _build
     sources = {"track_interp": "track_interp.cu",
                "agl_lookup": "agl_lookup.cu",
-               "dynamic_rates": "dynamic_rates.cu"}
+               "dynamic_rates": "dynamic_rates.cu",
+               "encounter_screen": "encounter_screen.cu"}
     replaces = {"track_interp": "src/repro/kernels/track_interp.py:89",
                 "agl_lookup": "src/repro/kernels/agl_lookup.py:94",
-                "dynamic_rates": "src/repro/kernels/dynamic_rates.py:77"}
+                "dynamic_rates": "src/repro/kernels/dynamic_rates.py:77",
+                "encounter_screen":
+                    "src/repro/kernels/encounter_screen.py:169"}
     rows = []
     for name, res in results.items():
         top = res["per_width"][WIDTHS[-1]]
@@ -464,7 +802,24 @@ def main() -> int:
             "per_width": {str(w): {k: r[k] for k in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
                 for w, r in res["per_width"].items()},
+            "launches_screen_workflow": screen_launches[name],
         })
+    C, K, T = SCREEN_SHAPES[-1]
+    top = screen["per_shape"][f"{C}x{K}x{T}"]
+    rows.append({
+        "name": "encounter_screen", "route": "cuda",
+        "source": os.path.relpath(_build.SRC_DIR / sources[
+            "encounter_screen"], HERE),
+        "replaces": replaces["encounter_screen"],
+        "launches": screen_launches["encounter_screen"],
+        "max_abs_err": screen["max_abs_err"],
+        "rtol": TOL["encounter_screen"][0],
+        "atol": TOL["encounter_screen"][1],
+        "ms": top["ms"], "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+        "library_ms": None, "shape": f"C={C} K={K} T={T}",
+        "per_shape": screen["per_shape"],
+    })
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(card)

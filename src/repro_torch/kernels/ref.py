@@ -114,3 +114,52 @@ def agl_lookup_ref(dem: torch.Tensor, fi: torch.Tensor, fj: torch.Tensor,
     elev = ((1 - di) * (1 - dj) * z00 + (1 - di) * dj * z01
             + di * (1 - dj) * z10 + di * dj * z11)
     return alt_msl - elev
+
+
+SCREEN_BIG = 1e30
+
+
+def f32(x: float) -> float:
+    """``x`` rounded to float32, as the JAX package rounds thresholds."""
+    return float(torch.tensor(x, dtype=torch.float32))
+
+
+def encounter_screen_ref(lat: torch.Tensor, lon: torch.Tensor,
+                         alt: torch.Tensor, valid: torch.Tensor, *,
+                         h_thresh_m: float, v_thresh_m: float):
+    """Pairwise miss-distance screen over time-aligned rows (one cell).
+
+    The full-broadcast oracle: every (i, j, t) at once.
+
+    Args:
+      lat, lon, alt: (K, T) f32, samples on a common 1-sample grid.
+      valid: (K, T) f32 0/1 sample presence mask.
+      h_thresh_m / v_thresh_m: candidate thresholds (m), rounded to f32.
+    Returns:
+      ``(hit, min_dh, min_dv, t_idx)``, each (K, K) f32, populated on the
+      strict upper triangle (i < j) only.  ``hit[i, j]`` is 1.0 when rows
+      i and j are within *both* thresholds at some jointly valid instant;
+      ``min_dh``/``min_dv`` are the minima of the horizontal/vertical
+      separation over those instants (1e30 where no hit); ``t_idx`` is
+      the first time index attaining ``min_dh`` (0 where no hit).
+      Local-tangent metric: 1 deg = 111_111 m, east metres scaled by the
+      cosine of the pair's mean latitude, in the JAX package's order of
+      f32 operations.
+    """
+    K, _ = lat.shape
+    li, lj = lat[:, None, :], lat[None, :, :]
+    dn = (li - lj) * M_PER_DEG
+    de = ((lon[:, None, :] - lon[None, :, :]) * M_PER_DEG
+          * torch.cos(torch.deg2rad(0.5 * (li + lj))))
+    dh = torch.sqrt(dn * dn + de * de)
+    dv = torch.abs(alt[:, None, :] - alt[None, :, :])
+    both = (valid[:, None, :] * valid[None, :, :]) > 0.5
+    k = torch.arange(K, device=lat.device)
+    tri = (k[:, None] < k[None, :])[:, :, None]
+    hit_t = both & tri & (dh <= f32(h_thresh_m)) & (dv <= f32(v_thresh_m))
+    dh_m = torch.where(hit_t, dh, SCREEN_BIG)
+    dv_m = torch.where(hit_t, dv, SCREEN_BIG)
+    return (hit_t.any(dim=-1).to(torch.float32),
+            dh_m.amin(dim=-1),
+            dv_m.amin(dim=-1),
+            torch.argmin(dh_m, dim=-1).to(torch.float32))

@@ -269,6 +269,14 @@ class ThreadTransport(_LiveTransport):
 
 
 def _process_worker_main(worker_id, inbox, mgr_queue, fn, kwargs) -> None:
+    # A forked child cannot use the OpenMP thread team its parent's torch
+    # ops started: its first parallel op waits forever on threads that
+    # were not forked.  One intra-op thread per worker process avoids the
+    # team (and is the processes backend's placement: one worker, one
+    # core).
+    torch = sys.modules.get("torch")
+    if torch is not None:
+        torch.set_num_threads(1)
     worker_loop(worker_id, inbox, mgr_queue.put, fn, **kwargs)
 
 

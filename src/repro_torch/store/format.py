@@ -1,0 +1,246 @@
+"""Store layout: shard/track index records and the on-disk manifest.
+
+A *store* is a directory::
+
+    <root>/store_manifest.json        # StoreManifest (this module)
+    <root>/shards/<shard_id>.shard    # codec.py column files
+
+The manifest is the index the read planner works from: per-shard file
+facts (sizes, sha256, point counts) and per-track records carrying the
+exact segment shapes — ``seg_knots[i]`` raw observations and
+``seg_grid[i]`` resampled grid points for the i-th gap-delimited segment
+that survives the paper's ten-observation rule.  Those two integers are
+all :func:`repro_torch.tracks.segments.bucket_width` needs, so the fused
+pipeline's length-bucket binning happens *from the index*, before any
+payload byte is read or decompressed.
+
+Like the codec, the manifest serialization is canonical (sorted keys,
+compact separators, no timestamps): building the same store twice from
+the same inputs produces byte-identical manifests and shard files.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Any, Optional
+
+__all__ = ["STORE_FORMAT", "MANIFEST_NAME", "SHARD_DIR", "SHARD_SUFFIX",
+           "TrackRecord", "ShardRecord", "StoreManifest",
+           "fsync_dir", "write_atomic"]
+
+STORE_FORMAT = "repro.store/v1"
+MANIFEST_NAME = "store_manifest.json"
+SHARD_DIR = "shards"
+SHARD_SUFFIX = ".shard"
+
+
+def fsync_dir(path: str) -> None:
+    """Best-effort directory fsync (durability of a rename entry)."""
+    try:
+        fd = os.open(path, os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    except OSError:
+        pass
+    finally:
+        os.close(fd)
+
+
+def write_atomic(path: str, data: bytes) -> None:
+    """THE crash-safe file commit (shards, manifests, archive siblings
+    share this one implementation): unique pid-suffixed tmp, data fsync
+    BEFORE the atomic rename, directory fsync after — so a power cut
+    can lose the whole commit but never leave a committed name with
+    torn contents or an unpersisted rename."""
+    parent = os.path.dirname(path) or "."
+    os.makedirs(parent, exist_ok=True)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "wb") as f:
+        f.write(data)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+    fsync_dir(parent)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrackRecord:
+    """Index entry for one track (one aircraft's observation series)."""
+
+    track_id: str               # stable id (zip-relative path at ingest)
+    shard_id: str
+    row: int                    # position within the shard's offsets
+    n_obs: int                  # raw observations stored
+    icao24: str                 # uniform per-track transponder id
+    seg_knots: tuple[int, ...]  # per kept segment: raw knots (<= 1024)
+    seg_grid: tuple[int, ...]   # per kept segment: 1 Hz grid points
+
+    @property
+    def n_segments(self) -> int:
+        return len(self.seg_knots)
+
+    def to_doc(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["seg_knots"] = list(self.seg_knots)
+        d["seg_grid"] = list(self.seg_grid)
+        return d
+
+    @classmethod
+    def from_doc(cls, d: dict) -> "TrackRecord":
+        return cls(track_id=d["track_id"], shard_id=d["shard_id"],
+                   row=int(d["row"]), n_obs=int(d["n_obs"]),
+                   icao24=d["icao24"],
+                   seg_knots=tuple(int(x) for x in d["seg_knots"]),
+                   seg_grid=tuple(int(x) for x in d["seg_grid"]))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardRecord:
+    """Index entry for one shard file."""
+
+    shard_id: str
+    filename: str               # relative to the store root
+    n_tracks: int
+    n_points: int               # total payload elements across columns' rows
+    size_bytes: int             # encoded file size
+    sha256: str                 # of the whole shard file
+
+    def to_doc(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_doc(cls, d: dict) -> "ShardRecord":
+        return cls(shard_id=d["shard_id"], filename=d["filename"],
+                   n_tracks=int(d["n_tracks"]),
+                   n_points=int(d["n_points"]),
+                   size_bytes=int(d["size_bytes"]), sha256=d["sha256"])
+
+
+@dataclasses.dataclass
+class StoreManifest:
+    """The store's whole index; everything the read planner needs."""
+
+    compression: str = "zlib"
+    target_points: int = 0          # writer's shard-sizing knob, recorded
+    #: Monotonic append counter: bumped by every
+    #: :func:`repro_torch.store.writer.commit_shard`, normalized to
+    #: ``len(shards)`` when the store is sealed — so an incremental
+    #: build and a batch build of the same inputs stay byte-identical,
+    #: while readers can detect any post-open append by comparing
+    #: generations alone.
+    generation: int = 0
+    shards: list[ShardRecord] = dataclasses.field(default_factory=list)
+    tracks: list[TrackRecord] = dataclasses.field(default_factory=list)
+    meta: dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    # -- (de)serialization ------------------------------------------------
+
+    def to_doc(self) -> dict:
+        return {
+            "format": STORE_FORMAT,
+            "compression": self.compression,
+            "target_points": self.target_points,
+            "generation": self.generation,
+            "shards": [s.to_doc() for s in self.shards],
+            "tracks": [t.to_doc() for t in self.tracks],
+            "meta": self.meta,
+        }
+
+    @classmethod
+    def from_doc(cls, doc: dict) -> "StoreManifest":
+        if doc.get("format") != STORE_FORMAT:
+            raise ValueError(f"not a {STORE_FORMAT} manifest: "
+                             f"{doc.get('format')!r}")
+        return cls(
+            compression=doc.get("compression", "zlib"),
+            target_points=int(doc.get("target_points", 0)),
+            generation=int(doc.get("generation", 0)),
+            shards=[ShardRecord.from_doc(d) for d in doc["shards"]],
+            tracks=[TrackRecord.from_doc(d) for d in doc["tracks"]],
+            meta=doc.get("meta", {}))
+
+    def canonical_bytes(self) -> bytes:
+        """Deterministic manifest serialization (the saved form)."""
+        return json.dumps(self.to_doc(), sort_keys=True,
+                          separators=(",", ":")).encode() + b"\n"
+
+    def save(self, root: str) -> str:
+        """Atomic manifest write; returns the manifest path."""
+        path = os.path.join(root, MANIFEST_NAME)
+        write_atomic(path, self.canonical_bytes())
+        return path
+
+    @classmethod
+    def load(cls, root: str) -> "StoreManifest":
+        path = os.path.join(root, MANIFEST_NAME)
+        if not os.path.exists(path):
+            raise FileNotFoundError(
+                f"{path}: not a track store (no {MANIFEST_NAME}); "
+                f"build one with `python -m repro_torch.store.writer`")
+        with open(path) as f:
+            return cls.from_doc(json.load(f))
+
+    # -- index queries ----------------------------------------------------
+
+    def shard(self, shard_id: str) -> ShardRecord:
+        for s in self.shards:
+            if s.shard_id == shard_id:
+                return s
+        raise KeyError(f"unknown shard {shard_id!r}")
+
+    def tracks_in(self, shard_id: str) -> list[TrackRecord]:
+        return sorted((t for t in self.tracks if t.shard_id == shard_id),
+                      key=lambda t: t.row)
+
+    def track(self, track_id: str) -> TrackRecord:
+        for t in self.tracks:
+            if t.track_id == track_id:
+                return t
+        raise KeyError(f"unknown track {track_id!r}")
+
+    @property
+    def n_points(self) -> int:
+        return sum(s.n_points for s in self.shards)
+
+    @property
+    def size_bytes(self) -> int:
+        return sum(s.size_bytes for s in self.shards)
+
+    def row_range_bytes(self, shard_id: str, lo: int = 0,
+                        hi: Optional[int] = None) -> int:
+        """Encoded-byte estimate for rows ``[lo, hi)`` of a shard,
+        computed purely from the index (no payload reads): the shard's
+        on-disk size prorated by the range's share of observation
+        points.  This is how row-range ``store://`` tasks get the size
+        signal that largest-first organization and the cost-aware
+        scheduling policies (sized_lpt / adaptive_chunk) key on.
+        """
+        shard = self.shard(shard_id)
+        rows = self.tracks_in(shard_id)
+        if hi is None:
+            hi = len(rows)
+        if not (0 <= lo <= hi <= len(rows)):
+            raise ValueError(f"row range {lo}:{hi} out of bounds for "
+                             f"{len(rows)} rows in shard {shard_id!r}")
+        total = sum(t.n_obs for t in rows)
+        if total <= 0:
+            return 0
+        part = sum(t.n_obs for t in rows[lo:hi])
+        return int(round(shard.size_bytes * (part / total)))
+
+    def bucket_histogram(self, tracks: Optional[list[TrackRecord]] = None
+                         ) -> dict[int, int]:
+        """Segment count per fused-pipeline bucket width, computed purely
+        from the index (no payload reads) — the store-side half of the
+        bucket planner."""
+        from repro_torch.tracks.segments import bucket_width
+        hist: dict[int, int] = {}
+        for t in (self.tracks if tracks is None else tracks):
+            for n, m in zip(t.seg_knots, t.seg_grid):
+                w = bucket_width(max(n, m))
+                hist[w] = hist.get(w, 0) + 1
+        return dict(sorted(hist.items()))

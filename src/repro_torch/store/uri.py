@@ -1,9 +1,14 @@
 """The ``store://`` task-payload grammar of the columnar track store.
 
-Only the URI grammar is here: the scheduling policies group store tasks
-by shard (:func:`repro_torch.runtime.policies.locality_key`).  The store
-itself (codec, manifest, reader, writer) is not part of the port yet,
-so a ``store://`` payload cannot be processed.
+The one definition of the grammar: the reader, the segment processor,
+the screen workers and the scheduling policies
+(:func:`repro_torch.runtime.policies.locality_key`) all import it from
+here.  URIs name read selections inside ``run_job`` task payloads::
+
+    store://<root>                          # whole store
+    store://<root>#track=<track_id>         # one track
+    store://<root>#shard=<shard_id>         # one shard (all rows)
+    store://<root>#shard=<shard_id>&rows=<a>:<b>   # row range in a shard
 """
 
 from __future__ import annotations

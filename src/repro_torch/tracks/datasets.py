@@ -125,3 +125,10 @@ def write_scaled_dataset(root: str, spec: ScaledDatasetSpec,
             f.write("\n".join(rows) + "\n")
         paths.append(path)
     return paths
+
+
+#: Modeled store re-read bytes per screen-cell row (one resampled
+#: segment's lat/lon/alt planes).  Screen-cell task sizes are
+#: ``occupancy * SCREEN_ROW_BYTES``, so occupancy is recoverable from
+#: ``size_bytes`` exactly.
+SCREEN_ROW_BYTES = 12_000

@@ -1,7 +1,6 @@
 """Workflow step 3: process + interpolate into track segments (§III.A).
 
-Port of ``repro/tracks/segments.py`` on zip/CSV input.  Per aircraft
-archive:
+Port of ``repro/tracks/segments.py``.  Per aircraft archive:
   1. split raw observations into segments on time gaps;
   2. drop segments with fewer than ten observations (paper rule);
   3. resample each segment onto a uniform grid  -> kernels.track_interp;
@@ -18,7 +17,12 @@ reference bins them, so bucket plans and padding statistics agree.
 baseline.  Results are host numpy, because the processes backend
 pickles them into DONE messages.
 
-The columnar store's ``store://`` payloads are not ported yet.
+Input is either zip/CSV (text re-parsed per run) or the columnar track
+store (:mod:`repro_torch.store`): ``store://`` task payloads select
+tracks, shards, or row ranges, and :meth:`SegmentProcessor.process_store`
+streams whole shards through the fused pipeline behind the store's async
+prefetcher.  Reading the store is host work: only the pipeline touches
+the device.
 """
 
 from __future__ import annotations
@@ -38,7 +42,8 @@ from repro_torch.geometry.dem import SyntheticGlobeDEM
 from repro_torch.geometry.queries import RADIUS_DEG
 from repro_torch.kernels import ops
 from repro_torch.kernels.segment_pipeline import FIELDS
-from repro_torch.store.uri import is_store_uri
+from repro_torch.store.uri import (
+    is_store_uri, make_store_uri, parse_store_uri)
 
 MIN_OBS_PER_SEGMENT = 10       # paper: remove segments with <10 observations
 SEGMENT_GAP_S = 120.0          # new segment after a 2-minute gap
@@ -155,13 +160,6 @@ def split_segments(times: np.ndarray, gap_s: float = SEGMENT_GAP_S,
     return out
 
 
-def _reject_store(path) -> None:
-    if is_store_uri(path):
-        raise NotImplementedError(
-            f"{path!r}: store:// input waits for the store slice of the "
-            f"port; process the zip archives instead")
-
-
 @dataclasses.dataclass
 class _SegRecord:
     """One segment, flattened out of its archive for bucketed batching."""
@@ -228,12 +226,16 @@ class SegmentProcessor:
         self.last_stats: dict = {}
         self._dem_lock = threading.Lock()
         self._dem_dev: dict = {}         # device -> DEM tensor
+        self._stores: dict = {}          # store root -> TrackStore
 
     def __getstate__(self) -> dict:
-        # A worker process rebuilds its own device copy (and lock).
+        # A worker process rebuilds its own device copy (and lock) and
+        # opens its own TrackStore (whose prefetch threads and stats are
+        # per process).
         state = dict(self.__dict__)
         state["_dem_lock"] = None
         state["_dem_dev"] = {}
+        state["_stores"] = {}
         return state
 
     def __setstate__(self, state: dict) -> None:
@@ -256,13 +258,69 @@ class SegmentProcessor:
         return self.process_file(task.payload or task.task_id)
 
     def read_observations(self, path: str) -> dict[str, np.ndarray]:
-        """One source -> observation dict (a CSV path or a zip archive)."""
-        _reject_store(path)
+        """One source -> observation dict.  Accepts a CSV path, a zip
+        archive, or a single-track ``store://`` URI (columnar-store reads
+        skip the text parse entirely)."""
+        if is_store_uri(path):
+            root, sel = parse_store_uri(path)
+            if "track" not in sel:
+                raise ValueError(
+                    f"read_observations needs a single track; {path!r} "
+                    f"selects a shard (use process_file/process_batch)")
+            return self._store_read(
+                root, lambda st: st.read_track(sel["track"]))
         return read_observations(path)
+
+    # -- store-backed input ----------------------------------------------
+
+    def _store(self, root: str):
+        """One cached TrackStore per store root (index parsed once)."""
+        store = self._stores.get(root)
+        if store is None:
+            from repro_torch.store.reader import TrackStore
+            store = self._stores[root] = TrackStore(root)
+        return store
+
+    def _store_read(self, root: str, fn):
+        """Run one read against the cached store, retrying once after a
+        manifest reload on a missed track/shard: a store that grows while
+        it is being processed can be newer than a worker's snapshot."""
+        store = self._store(root)
+        try:
+            return fn(store)
+        except KeyError:
+            store.reload()
+            return fn(store)
+
+    def _store_items(self, uri: str) -> list[tuple[str, dict, list[slice]]]:
+        """store:// URI -> [(track_id, obs, segs)] for its selection."""
+        root, sel = parse_store_uri(uri)
+        return self._store_read(root, lambda st: st.read_selection(sel))
+
+    def process_store(self, root: str, *, prefetch: int = 1,
+                      plans=None) -> dict[str, "ProcessedSegments"]:
+        """Stream the whole store (or ``plans``) through the fused
+        pipeline: the async prefetcher decodes shard N+1 while the
+        device processes shard N.  Returns {track_id: ProcessedSegments}.
+        """
+        store = self._store(root)
+        out: dict[str, ProcessedSegments] = {}
+        for batch in store.iter_batches(plans, prefetch=prefetch):
+            out.update(self._process_triples(
+                [(tid, obs, segs) for tid, (obs, segs)
+                 in zip(batch.track_ids, batch.items)]))
+        return out
 
     # -- processing -------------------------------------------------------
 
-    def process_file(self, path: str) -> ProcessedSegments:
+    def process_file(self, path: str):
+        """One source -> ProcessedSegments; a multi-track ``store://``
+        selection (shard / row range / whole store) -> a dict keyed by
+        track_id."""
+        if is_store_uri(path):
+            _root, sel = parse_store_uri(path)
+            if "track" not in sel:
+                return self._process_selection(path)
         obs = self.read_observations(path)
         if not obs:
             return _empty()
@@ -270,6 +328,21 @@ class SegmentProcessor:
         if not segs:
             return _empty()
         return self.process_arrays(obs, segs)
+
+    def _process_selection(self, uri: str) -> dict:
+        return self._process_triples(self._store_items(uri))
+
+    def _process_triples(self, triples: list) -> dict:
+        """[(track_id, obs, segs)] -> {track_id: ProcessedSegments},
+        ONE fused pass over the non-empty items: the single merge helper
+        behind store selections and store streaming."""
+        out = {tid: _empty() for tid, _obs, segs in triples if not segs}
+        work = [(tid, (obs, segs)) for tid, obs, segs in triples if segs]
+        if work:
+            for (tid, _), ps in zip(
+                    work, self._process_many([it for _, it in work])):
+                out[tid] = ps
+        return out
 
     def process_arrays(self, obs: dict[str, np.ndarray],
                        segs: list[slice]) -> ProcessedSegments:
@@ -279,23 +352,48 @@ class SegmentProcessor:
         """Runtime batch hook: one multi-task ASSIGN message -> bucketed
         pipeline calls over every segment of every source in the batch,
         instead of per-task Python dispatch.  Returns
-        ``{task_id: ProcessedSegments}`` (what the worker reports DONE).
+        ``{task_id: result}`` (what the worker reports DONE): a
+        ProcessedSegments per zip/CSV/single-track task, a
+        ``{track_id: ProcessedSegments}`` dict per multi-track
+        ``store://`` task, with ONE fused pipeline pass over all of it.
         """
-        out: dict[str, ProcessedSegments] = {}
+        out: dict[str, object] = {}
         items: list[tuple[dict, list[slice]]] = []
-        slots: list[tuple[str, int]] = []
+        # (task_id, track_key or None, item index); key None = the
+        # task's result IS the ProcessedSegments, else it lands in the
+        # task's per-track dict under that key.
+        slots: list[tuple[str, Optional[str], int]] = []
         for task in tasks:
-            obs = self.read_observations(task.payload or task.task_id)
+            path = task.payload or task.task_id
+            if is_store_uri(path):
+                _root, sel = parse_store_uri(path)
+                single = "track" in sel
+                if not single:
+                    out[task.task_id] = {}
+                for tid, obs, segs in self._store_items(path):
+                    key = None if single else tid
+                    if segs:
+                        slots.append((task.task_id, key, len(items)))
+                        items.append((obs, segs))
+                    elif single:
+                        out[task.task_id] = _empty()
+                    else:
+                        out[task.task_id][tid] = _empty()
+                continue
+            obs = self.read_observations(path)
             segs = split_segments(obs["time"]) if obs else []
             if segs:
-                slots.append((task.task_id, len(items)))
+                slots.append((task.task_id, None, len(items)))
                 items.append((obs, segs))
             else:
                 out[task.task_id] = _empty()
         if items:
             processed = self._process_many(items)
-            for task_id, idx in slots:
-                out[task_id] = processed[idx]
+            for task_id, key, idx in slots:
+                if key is None:
+                    out[task_id] = processed[idx]
+                else:
+                    out[task_id][key] = processed[idx]
         return out
 
     def _process_many(self, items: list[tuple[dict, list[slice]]]
@@ -587,5 +685,58 @@ def segment_tasks_from_archive_tree(archive_root: str) -> list[Task]:
                     task_id=os.path.relpath(p, archive_root),
                     size_bytes=os.path.getsize(p),
                     payload=p))
+    tasks.sort(key=lambda t: t.task_id)
+    return tasks
+
+
+#: Index bytes per stored observation point (4 f64 columns + codes);
+#: sizes store-backed tasks for largest-first organization.
+_STORE_BYTES_PER_POINT = 36
+
+
+def segment_tasks_from_store(store_root: str,
+                             granularity: str = "shard",
+                             rows_per_task: int = 4) -> list[Task]:
+    """Store-backed processing tasks, sized from the index alone.
+
+    ``granularity='shard'``: one Task per shard, so a worker's ASSIGN
+    batch maps 1:1 onto shard reads.  ``granularity='track'``: one Task
+    per track, with the task ids of
+    :func:`segment_tasks_from_archive_tree`.  ``granularity='rows'``:
+    one Task per ``rows_per_task`` consecutive rows of a shard
+    (``store://...#shard=<id>&rows=a:b`` payloads), sized via
+    :meth:`repro_torch.store.format.StoreManifest.row_range_bytes`: the
+    grain the ``shard_affinity`` scheduling policy groups by.
+    """
+    from repro_torch.store.format import StoreManifest
+
+    if granularity not in ("shard", "track", "rows"):
+        raise ValueError(f"unknown granularity {granularity!r}")
+    manifest = StoreManifest.load(store_root)
+    tasks = []
+    if granularity == "shard":
+        for s in manifest.shards:
+            tasks.append(Task(
+                task_id=f"store/{s.shard_id}",
+                size_bytes=s.n_points * _STORE_BYTES_PER_POINT,
+                payload=make_store_uri(store_root, shard=s.shard_id)))
+    elif granularity == "rows":
+        if rows_per_task < 1:
+            raise ValueError("rows_per_task must be >= 1")
+        for s in manifest.shards:
+            n_rows = len(manifest.tracks_in(s.shard_id))
+            for a in range(0, n_rows, rows_per_task):
+                b = min(a + rows_per_task, n_rows)
+                tasks.append(Task(
+                    task_id=f"store/{s.shard_id}/r{a:05d}",
+                    size_bytes=manifest.row_range_bytes(s.shard_id, a, b),
+                    payload=make_store_uri(store_root, shard=s.shard_id,
+                                           rows=f"{a}:{b}")))
+    else:
+        for t in manifest.tracks:
+            tasks.append(Task(
+                task_id=t.track_id,
+                size_bytes=t.n_obs * _STORE_BYTES_PER_POINT,
+                payload=make_store_uri(store_root, track=t.track_id)))
     tasks.sort(key=lambda t: t.task_id)
     return tasks

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.kernels import agl_lookup as agl_mod
 from repro_torch.kernels import dynamic_rates as rates_mod
+from repro_torch.kernels import encounter_screen as screen_mod
 from repro_torch.kernels import ref
 from repro_torch.kernels import track_interp as interp_mod
 
@@ -172,3 +173,104 @@ def test_workflow_processes_backend_forks_workers_onto_card(dev, tmp_path):
     phases = json.loads(out.stdout.strip().splitlines()[-1])
     assert [p for p, _ in phases] == ["organize", "archive", "process"]
     assert phases[-1][1] > 0
+
+
+def _cells(C, K, T, seed, n_valid=None):
+    """Clustered 1 Hz trails around one point per cell (a real share of
+    pairs hits), each row valid over a random span."""
+    rng = np.random.default_rng(seed)
+    lat = (40.0 + rng.normal(0, 0.005, (C, K, 1))
+           + np.cumsum(rng.normal(0, 1e-4, (C, K, T)), axis=2))
+    lon = (-100.0 + rng.normal(0, 0.005, (C, K, 1))
+           + np.cumsum(rng.normal(0, 1e-4, (C, K, T)), axis=2))
+    alt = rng.uniform(400, 900, (C, K, 1)) + rng.normal(0, 5, (C, K, T))
+    s = rng.integers(0, T // 2, (C, K, 1))
+    e = rng.integers(T // 2, T + 1, (C, K, 1))
+    t = np.arange(T)[None, None, :]
+    val = ((t >= s) & (t < e)).astype(np.float32)
+    if n_valid is not None:
+        val[:, n_valid:] = 0.0
+    return [x.astype(np.float32) for x in (lat, lon, alt, val)]
+
+
+def _check_screen(got, want):
+    hit = want[0] > 0.5
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[3][hit], want[3][hit])
+    for g, w in zip(got[1:3], want[1:3]):
+        torch.testing.assert_close(g[hit], w[hit], rtol=1e-5, atol=1e-2)
+    # No-hit entries (lower triangle and diagonal included) hold the
+    # reference's constants.
+    for g, fill in zip(got, (0.0, 1e30, 1e30, 0.0)):
+        assert bool((g[~hit] == torch.tensor(fill, dtype=torch.float32,
+                                             device=g.device)).all())
+
+
+@pytest.mark.parametrize("C,K,T", [
+    (1, 8, 128), (3, 24, 256), (5, 40, 384), (8, 240, 1024),
+    (2, 240, 4608),
+])
+def test_encounter_screen_kernel(dev, C, K, T):
+    args = [torch.from_numpy(x).to(dev)
+            for x in _cells(C, K, T, seed=C * 7 + K + T, n_valid=K - 3)]
+    before = screen_mod.launches
+    got = screen_mod.encounter_screen(*args, h_m=926.0, v_m=152.4)
+    torch.cuda.synchronize()
+    assert screen_mod.launches == before + 1
+    want = screen_mod._screen_batch_plain(*args, h_m=926.0, v_m=152.4)
+    assert want[0].sum().item() > 0
+    _check_screen(got, want)
+    oracle = ref.encounter_screen_ref(*(a[0] for a in args),
+                                      h_thresh_m=926.0, v_thresh_m=152.4)
+    _check_screen(tuple(g[0] for g in got), oracle)
+
+
+def test_encounter_screen_grid_past_65535_blocks(dev):
+    # 66000 cells x 1 tile: grid.x past grid.y's 65535 limit.
+    args = [torch.from_numpy(x).to(dev) for x in _cells(66_000, 8, 128, 3)]
+    got = screen_mod.encounter_screen(*args, h_m=926.0, v_m=152.4)
+    want = screen_mod._screen_batch_plain(*args, h_m=926.0, v_m=152.4)
+    _check_screen(got, want)
+
+
+def test_screen_workflow_processes_spawns_workers_onto_card(dev, tmp_path):
+    # The screen plan runs the segment pipeline on the card in the
+    # parent, so the screen phase's workers are spawned, and each opens
+    # the card itself.
+    code = (
+        "import json, sys, torch\n"
+        "from repro_torch.kernels.encounter_screen import "
+        "brute_force_screen\n"
+        "from repro_torch.runtime import transports\n"
+        "from repro_torch.tracks.segments import (SegmentProcessor,\n"
+        "    segment_tasks_from_store)\n"
+        "from repro_torch.tracks.workflow import (TrackWorkflow,\n"
+        "    _screen_rows_for_uri)\n"
+        "wf = TrackWorkflow(sys.argv[1], n_workers=2,\n"
+        "    exec_backend='processes', device='cuda', input='store',\n"
+        "    store_target_points=2048, screen=True, screen_h_m=50_000.0,\n"
+        "    screen_v_m=1000.0, screen_cell_deg=1.0)\n"
+        "wf.generate_raw(n_files=1, scale=1e3)\n"
+        "reports = wf.run()\n"
+        "assert torch.cuda.is_initialized()\n"
+        "assert transports._default_start_method() == 'spawn'\n"
+        "proc = SegmentProcessor(device='cuda')\n"
+        "rows = [r for t in segment_tasks_from_store(wf.store_dir)\n"
+        "        for r in _screen_rows_for_uri(proc, t.payload)]\n"
+        "want = brute_force_screen(rows, config=wf.screen_config)\n"
+        "got = json.load(open(wf.candidates_path))['candidates']\n"
+        "print(json.dumps({'phases': [[r.phase, r.tasks] for r in reports],\n"
+        "    'got': [(c['a'], c['b'], c['t_s']) for c in got],\n"
+        "    'want': [(c['a'], c['b'], c['t_s']) for c in want]}))\n")
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         capture_output=True, text=True, env=env,
+                         timeout=400)
+    assert out.returncode == 0, out.stderr[-4000:]
+    doc = json.loads(out.stdout.strip().splitlines()[-1])
+    assert [p for p, _ in doc["phases"]] == [
+        "organize", "archive", "store-build", "process", "screen"]
+    assert doc["phases"][-1][1] > 0
+    assert doc["got"] == doc["want"] and doc["got"]

@@ -149,10 +149,12 @@ def test_intermediate_transfers(golden_archives, processors):
     assert tops.get_pipeline_stats()["intermediate_transfers"] == 4
 
 
-def test_store_payload_names_its_slice(processors):
+def test_store_payload_names_its_slice(processors, tmp_path):
+    # store:// payloads are ported (tests/test_torch_store.py): one that
+    # names a missing store fails on its manifest, naming the store.
     _, fused, _ = processors
-    with pytest.raises(NotImplementedError, match="store slice"):
-        fused.process_file("store:///tmp/store#shard=s00000")
+    with pytest.raises(FileNotFoundError, match="not a track store"):
+        fused.process_file(f"store://{tmp_path}/none#shard=s00000")
 
 
 def test_processor_pickles_without_device_copy(processors):

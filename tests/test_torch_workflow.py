@@ -1,9 +1,10 @@
 """Port runtime and workflow vs the JAX package's, and the port alone.
 
 The copied runtime must dispatch exactly as the reference's; the copied
-dataset writer must write the same bytes; and a full workflow run of
-the port, in a fresh interpreter that imports only ``repro_torch``,
-must leave JAX and every ``repro`` module unimported.
+dataset writer must write the same bytes; and full workflow runs of
+the port (zip input, and store input with the screen phase), in a fresh
+interpreter that imports only ``repro_torch``, must leave JAX and every
+``repro`` module unimported.
 """
 
 import json
@@ -80,14 +81,26 @@ torch.set_num_threads(1)
 from repro_torch.tracks.workflow import TrackWorkflow
 from repro_torch.tracks.segments import segment_tasks_from_archive_tree
 root, backend = sys.argv[1], sys.argv[2]
-wf = TrackWorkflow(root, n_workers=2, exec_backend=backend,
-                   tasks_per_message=2, poll_interval=0.003, device="cpu")
+kw = dict(n_workers=2, exec_backend=backend, tasks_per_message=2,
+          poll_interval=0.003, device="cpu")
+wf = TrackWorkflow(root + "/zip", **kw)
 wf.generate_raw(n_files=3, scale=4e4)
 reports = wf.run()
+# The store + screen path, on the reference test's screen thresholds.
+sw = TrackWorkflow(root + "/screen", input="store", store_target_points=2048,
+                   screen=True, screen_h_m=50_000.0, screen_v_m=1000.0,
+                   screen_cell_deg=1.0, **kw)
+sw.generate_raw(n_files=1, scale=1e3)
+screen_reports = sw.run()
+with open(sw.candidates_path) as f:
+    n_candidates = len(json.load(f)["candidates"])
 print(json.dumps({
     "phases": [r.phase for r in reports],
     "process_tasks": reports[-1].tasks,
     "archives": len(segment_tasks_from_archive_tree(wf.archive_dir)),
+    "screen_phases": [r.phase for r in screen_reports],
+    "screen_tasks": screen_reports[-1].tasks,
+    "candidates": n_candidates,
     "foreign": sorted(m for m in sys.modules
                       if m == "jax" or m.startswith(("jax.", "repro.")))
                       + (["repro"] if "repro" in sys.modules else []),
@@ -105,4 +118,7 @@ def test_port_workflow_runs_without_jax(tmp_path, backend):
     doc = json.loads(proc.stdout.strip().splitlines()[-1])
     assert doc["phases"] == ["organize", "archive", "process"]
     assert doc["process_tasks"] == doc["archives"] > 0
+    assert doc["screen_phases"] == ["organize", "archive", "store-build",
+                                    "process", "screen"]
+    assert doc["screen_tasks"] > 0 and doc["candidates"] > 0
     assert doc["foreign"] == []
