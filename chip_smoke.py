@@ -8,7 +8,7 @@ and the CUDA toolkit:
 
 Phases, each printed as it runs:
 
-1. build   — compile ``src/repro_torch/kernels/csrc/*.cu`` (four
+1. build   — compile ``src/repro_torch/kernels/csrc/*.cu`` (five
              kernels, one nvcc each, all started together) for sm_90a;
              print the build time, ptxas' registers and shared memory
              per kernel, and the card's name and power limit.
@@ -37,6 +37,22 @@ Phases, each printed as it runs:
              same store-derived rows and against the screen tasks re-run
              on the CPU, and the store path's process phase held
              against the zip path's, bitwise.
+6. flash   — the flash-attention kernel against its plain version at the
+             six shapes of tests/test_flash_attention.py in f32 (rtol/atol
+             2e-5), its bf16 case, stablelm-12b's heads (B = 1, H = 32,
+             KV = 8, hd = 160, T = S in {512, 2048, 4096}) in bf16 and
+             f32, and phase 7's own shape (B = 2, T = S = 2048, bf16); a
+             bf16 output within one bf16 rounding of the plain f32 one
+             (rtol 2^-8, atol 1e-5); timed beside the plain version and,
+             at T = S, F.scaled_dot_product_attention (the yardstick only).
+7. lm      — stablelm-12b at full width and depth (40 layers, 12.1 B
+             parameters in bf16, random from a seed) on the card: forward
+             on 2 x 2048 tokens with attention_impl "flash" (the flash
+             counter zeroed just before, 40 launches read just after) and
+             "xla", logits compared; prefill + decode_step against
+             forward; BatchedServer (4 slots, prompt 64, cache 256): one
+             warm-up request, then 3 rounds of 8 seeded requests of 16
+             new tokens each, every round gated and timed on its own.
 
 The line before the last is the card's name and power limit; before it
 one JSON object lists every kernel with its timings.  The last line is
@@ -88,6 +104,30 @@ SCREEN_OPS_PER_PAIR_SAMPLE = 22
 SCREEN_WF = dict(screen_h_m=50_000.0, screen_v_m=1000.0,
                  screen_cell_deg=1.0)
 CAND_ATOL_M = 1e-2
+# Phase 6: the flash kernel's shapes (B, H, KV, T, S, hd, causal).  The
+# six of tests/test_flash_attention.py in f32, its bf16 case, and
+# stablelm-12b's heads at three sequence lengths in both dtypes.
+FLASH_TEST_SHAPES = ((1, 4, 2, 256, 256, 64, True), (2, 8, 2, 128, 384, 64, True),
+                     (1, 2, 2, 256, 256, 128, False),
+                     (1, 12, 4, 384, 384, 192, True),
+                     (2, 4, 1, 256, 512, 64, True), (1, 4, 4, 200, 300, 64, True))
+FLASH_BF16_SHAPE = (1, 4, 2, 128, 128, 64, True)
+FLASH_LM_T = (512, 2048, 4096)
+FLASH_F32_TOL = 2e-5             # rtol and atol, tests/test_flash_attention.py
+# A bf16 output against the plain version's f32 output: one bf16 rounding
+# (unit roundoff 2^-8) of an f32 result.  At the JAX test's bf16 case,
+# whose outputs stay below 4, this is tighter than its max error 0.05.
+FLASH_BF16_RTOL, FLASH_BF16_ATOL = 2.0 ** -8, 1e-5
+BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core rate
+# Phase 7: stablelm-12b at full width and depth.
+LM_ARCH = "stablelm-12b"
+LM_B, LM_T = 2, 2048
+# Phase 6 also holds the kernel at the shape phase 7's forward gives it.
+FLASH_MAIN_PATH_SHAPE = (LM_B, 32, 8, LM_T, LM_T, 160, True)
+LM_REL_GATE = 0.03               # flash vs xla logits, tests/test_flash_attention.py
+LM_DECODE_T, LM_DECODE_GATE = 64, 0.05   # tests/test_models.py's gate
+SERVE = dict(slots=4, prompt_len=64, cache_len=256)
+SERVE_REQUESTS, SERVE_NEW, SERVE_ROUNDS = 8, 16, 3
 # Screen tasks timed one after another, profiled, after the workflow.
 SCREEN_PROFILE_TASKS = 200
 # Card against CPU on the GLOBE batch: both run the same f32 operations
@@ -186,8 +226,8 @@ def phase_build() -> str:
         elif "registers" in line or "spill" in line.lower():
             say("build", f"{source}: ptxas" + line.split("ptxas", 1)[-1])
     n = len(_build._sources())
-    if n != 4 or "encounter_screen.cu" not in _build.build_log():
-        raise AssertionError(f"expected four kernel sources, built {n}")
+    if n != 5 or "flash_attention.cu" not in _build.build_log():
+        raise AssertionError(f"expected five kernel sources, built {n}")
     card = card_line()
     say("build", f"card: {card}")
     return card
@@ -521,11 +561,7 @@ def phase_globe(archive_dir: str, globe_dem) -> None:
         gpu._process_many(items)
         torch.cuda.synchronize()
         prof_s = time.perf_counter() - t0
-    cuda = torch.autograd.DeviceType.CUDA
-    busy = {}
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) == cuda:
-            busy[e.key] = getattr(e, "self_device_time_total", 0.0) / 1e3
+    busy = _device_busy(prof)
     busy_ms = sum(busy.values())
     if busy_ms > 0:
         top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
@@ -729,10 +765,7 @@ def profile_screen_tasks(wf, tasks) -> None:
     split = {"store reads": cum.get(("segments.py", "read_observations"), 0),
              "segment pipeline": cum.get(("segments.py", "process_arrays"), 0),
              "cell screen": cum.get(("encounter_screen.py", "screen_cells"), 0)}
-    cuda = torch.autograd.DeviceType.CUDA
-    busy = sum(getattr(e, "self_device_time_total", 0.0)
-               for e in prof.key_averages()
-               if getattr(e, "device_type", None) == cuda) / 1e6
+    busy = sum(_device_busy(prof).values()) / 1e3
     say("screen", f"{len(tasks)} screen tasks one after another on the "
                   f"card, profiled: {wall:.3f}s wall "
                   f"({wall / len(tasks) * 1e3:.2f} ms a task); host split "
@@ -742,6 +775,282 @@ def profile_screen_tasks(wf, tasks) -> None:
                      f"{1 - busy / wall:.4f})" if busy > 0 else
                      "; profiler saw no device time: idle share not "
                      "measured"))
+
+
+def flash_bound(B, H, KV, T, S, hd, causal, itemsize, ops_per_s):
+    """(ms, "bytes" | "operations"): q, k, v read once and o written once
+    against 4 * hd operations for each (query, key) pair the mask keeps
+    (2 hd for the score, 2 hd for the weighted sum)."""
+    # Query t keeps keys 0 .. t + S - T, clipped to [0, S].
+    pairs = (sum(min(max(t + S - T + 1, 0), S) for t in range(T))
+             if causal else T * S)
+    nbytes = itemsize * (2 * B * H * T * hd + 2 * B * KV * S * hd)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * hd * pairs * B * H / ops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_flash() -> dict:
+    """The flash kernel against its plain version at every shape, timed
+    beside the plain version and, at T == S, SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    cases = [(shape, torch.float32) for shape in FLASH_TEST_SHAPES]
+    cases.append((FLASH_BF16_SHAPE, torch.bfloat16))
+    cases += [((1, 32, 8, T, T, 160, True), dt) for T in FLASH_LM_T
+              for dt in (torch.bfloat16, torch.float32)]
+    cases.append((FLASH_MAIN_PATH_SHAPE, torch.bfloat16))
+    res = {"per_shape": {}, "max_abs_err": 0.0}
+    for (B, H, KV, T, S, hd, causal), dt in cases:
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
+                   for shape in ((B, H, T, hd), (B, KV, S, hd),
+                                 (B, KV, S, hd)))
+        got = flash_attention(q, k, v, causal=causal)
+        want = ref.flash_attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = (got.float() - want).abs().max().item()
+        rtol, atol = ((FLASH_F32_TOL, FLASH_F32_TOL) if dt == torch.float32
+                      else (FLASH_BF16_RTOL, FLASH_BF16_ATOL))
+        ok = torch.allclose(got.float(), want, rtol=rtol, atol=atol)
+        tol = f"rtol {rtol:.3g}, atol {atol:.3g}"
+        name = f"B={B} H={H} KV={KV} T={T} S={S} hd={hd} " \
+               f"{'causal' if causal else 'full'} {str(dt)[6:]}"
+        if not ok:
+            raise AssertionError(f"flash_attention at {name} disagrees with "
+                                 f"its plain version: max |diff| {err}")
+        runs = 10 if T * S >= 2048 * 2048 else TIMED_RUNS
+        row = {"max_abs_err": err,
+               "ms": device_ms(lambda: flash_attention(q, k, v,
+                                                       causal=causal),
+                               runs=runs),
+               "plain_ms": device_ms(lambda: ref.flash_attention_ref(
+                   q, k, v, causal=causal), runs=runs),
+               "library_ms": None}
+        if T == S:
+            lib = F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                 enable_gqa=True)
+            row["library_max_abs_err"] = (lib.float() - want).abs().max() \
+                .item()
+            row["library_ms"] = device_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal, enable_gqa=True), runs=runs)
+        rate = BF16_OPS_PER_S if dt == torch.bfloat16 else F32_OPS_PER_S
+        row["bound_ms"], row["bound_by"] = flash_bound(
+            B, H, KV, T, S, hd, causal, q.element_size(), rate)
+        lib = ("-" if row["library_ms"] is None
+               else f"{row['library_ms']:.4f}")
+        say("flash", f"{name}: max|diff| {err:.3g} ({tol}); kernel "
+                     f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+                     f"library {lib} ms, bound {row['bound_ms']:.4f} ms "
+                     f"({row['bound_by']}), {row['ms'] / row['bound_ms']:.1f}"
+                     f"x the bound")
+        res["per_shape"][name] = row
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return res
+
+
+def rel_diff(a, b) -> float:
+    return ((a.float() - b.float()).abs().max()
+            / (b.float().abs().max() + 1e-6)).item()
+
+
+def phase_lm() -> dict:
+    """stablelm-12b at full width and depth on the card, through the
+    port's forward, prefill/decode_step and BatchedServer."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.models import model as M
+    from repro_torch.serving import BatchedServer, Request
+
+    dev = torch.device("cuda")
+    cfg = get_arch(LM_ARCH)
+    cfg_flash = dataclasses.replace(cfg, attention_impl="flash")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    say("lm", f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+              f"{cfg.n_heads} heads (kv {cfg.n_kv_heads}, hd "
+              f"{cfg.head_dim_}), d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: "
+              f"{n_params} parameters, {n_bytes / 1e9:.2f} GB on the card, "
+              f"drawn in {time.perf_counter() - t0:.2f}s")
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (LM_B, LM_T))
+                            .astype(np.int32)).to(dev)
+    n_tok = LM_B * LM_T
+
+    def timed_forward(c):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = M.forward(c, params, {"tokens": toks})
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    _, warm_s = timed_forward(cfg)              # cuBLAS and allocator warm-up
+    del _
+    torch.cuda.reset_peak_memory_stats()
+    flash_mod.launches = 0
+    lf, flash_s = timed_forward(cfg_flash)
+    launches = flash_mod.launches
+    peak_flash = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    lx, xla_s = timed_forward(cfg)
+    peak_xla = torch.cuda.max_memory_allocated()
+    rel = rel_diff(lf, lx)
+    finite = bool(torch.isfinite(lf).all() and torch.isfinite(lx).all())
+    say("lm", f"forward B={LM_B} T={LM_T}: flash {flash_s:.3f}s "
+              f"({n_tok / flash_s:.1f} tokens/s, peak "
+              f"{peak_flash / 1e9:.2f} GB), xla {xla_s:.3f}s "
+              f"({n_tok / xla_s:.1f} tokens/s, peak {peak_xla / 1e9:.2f} "
+              f"GB), first (xla, warm-up) {warm_s:.3f}s; flash launches "
+              f"{launches}; max|flash - xla| / max|xla| {rel:.3g} (gate "
+              f"{LM_REL_GATE}); finite {finite}")
+    if launches != cfg.n_layers:
+        raise AssertionError(f"flash forward launched the kernel {launches} "
+                             f"times, expected {cfg.n_layers}")
+    if not finite or tuple(lf.shape) != (LM_B, LM_T, cfg.vocab_size):
+        raise AssertionError(f"forward logits: shape {tuple(lf.shape)}, "
+                             f"finite {finite}")
+    if rel >= LM_REL_GATE:
+        raise AssertionError(f"flash and xla logits differ: rel {rel}")
+    del lf, lx
+
+    # Where a flash forward's device time goes, by kernel.
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        M.forward(cfg_flash, params, {"tokens": toks})
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    busy = _device_busy(prof)
+    top = sorted(busy.items(), key=lambda kv: -kv[1])[:8]
+    busy_ms = sum(busy.values())
+    say("lm", f"profiled flash forward {prof_s * 1e3:.1f} ms wall, device "
+              f"busy {busy_ms:.1f} ms (idle share "
+              f"{1 - busy_ms / (prof_s * 1e3):.4f}); top: " + "; ".join(
+                  f"{k[:48]} {v:.1f} ms" for k, v in top))
+
+    # prefill(T) + decode_step against forward(T + 1).
+    ptoks = toks[:, :LM_DECODE_T + 1]
+    _, cache = M.prefill(cfg, params, {"tokens": ptoks[:, :LM_DECODE_T]},
+                         cache_len=LM_DECODE_T + 4)
+    dec, _ = M.decode_step(cfg, params, cache,
+                           {"tokens": ptoks[:, LM_DECODE_T:]})
+    full = M.forward(cfg, params, {"tokens": ptoks})
+    rel_dec = rel_diff(dec[:, 0], full[:, LM_DECODE_T])
+    say("lm", f"prefill({LM_DECODE_T}) + decode_step vs forward("
+              f"{LM_DECODE_T + 1}): rel {rel_dec:.3g} (gate {LM_DECODE_GATE})")
+    if not rel_dec < LM_DECODE_GATE:
+        raise AssertionError(f"decode disagrees with forward: rel {rel_dec}")
+    del cache, dec, full
+
+    class TimedServer(BatchedServer):
+        """Times each admit (prefill) and engine step; both end in a host
+        read of the argmax, so the host clock sees the device finish."""
+        def admit(self, req):
+            t0 = time.perf_counter()
+            ok = super().admit(req)
+            if ok:
+                self.admit_s.append(time.perf_counter() - t0)
+            return ok
+
+        def step(self):
+            t0 = time.perf_counter()
+            super().step()
+            self.step_s.append(time.perf_counter() - t0)
+
+    server = TimedServer(cfg, params, device=dev, **SERVE)
+    ids = iter(range(1 + SERVE_REQUESTS * SERVE_ROUNDS))
+
+    def requests(n):
+        out = []
+        for _ in range(n):
+            P = int(rng.integers(16, SERVE["prompt_len"] + 1))
+            out.append(Request(next(ids), rng.integers(0, cfg.vocab_size, P),
+                               max_new_tokens=SERVE_NEW))
+        return out
+
+    # One request outside the timed rounds: the first prefill and decode
+    # at these shapes choose their cuBLAS algorithms and grow the cache
+    # allocator.
+    server.admit_s, server.step_s = [], []
+    server.serve(requests(1))
+    rounds = []
+    for _ in range(SERVE_ROUNDS):
+        server.admit_s, server.step_s = [], []
+        steps0 = server.steps
+        reqs = requests(SERVE_REQUESTS)
+        t0 = time.perf_counter()
+        server.serve(reqs)
+        serve_s = time.perf_counter() - t0
+        if not all(r.done and len(r.tokens_out) == SERVE_NEW for r in reqs):
+            raise AssertionError(f"requests unfinished: "
+                                 f"{[len(r.tokens_out) for r in reqs]}")
+        if not all(0 <= t < cfg.vocab_size
+                   for r in reqs for t in r.tokens_out):
+            raise AssertionError("a token outside the vocabulary")
+        n_out = sum(len(r.tokens_out) for r in reqs)
+        rounds.append({"tokens_per_s": n_out / serve_s,
+                       "step_ms": statistics.median(server.step_s) * 1e3,
+                       "admit_ms": statistics.median(server.admit_s) * 1e3})
+        say("lm", f"BatchedServer {SERVE}, round {len(rounds)}: "
+                  f"{len(reqs)} requests, {n_out} tokens in {serve_s:.3f}s "
+                  f"({rounds[-1]['tokens_per_s']:.1f} tokens/s), "
+                  f"{server.steps - steps0} engine steps, decode step "
+                  f"{rounds[-1]['step_ms']:.1f} ms (median; first "
+                  f"{server.step_s[0] * 1e3:.1f} ms), admit (prefill of "
+                  f"one prompt + splice) {rounds[-1]['admit_ms']:.1f} ms "
+                  f"(median)")
+    step_ms = [r["step_ms"] for r in rounds]
+    say("lm", f"decode step over {SERVE_ROUNDS} rounds: median "
+              f"{statistics.median(step_ms):.1f} ms, spread (max - min) / "
+              f"min {(max(step_ms) - min(step_ms)) / min(step_ms):.3f}")
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        server.step()
+        step_prof_s = time.perf_counter() - t0
+    busy = _device_busy(prof)
+    top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
+    busy_ms = sum(busy.values())
+    say("lm", f"profiled decode step {step_prof_s * 1e3:.1f} ms wall, "
+              f"device busy {busy_ms:.1f} ms (idle share "
+              f"{1 - busy_ms / (step_prof_s * 1e3):.4f}); top: " + "; ".join(
+                  f"{k[:48]} {v:.1f} ms" for k, v in top))
+    del server, params
+    torch.cuda.empty_cache()
+    return {"launches": launches, "forward_tokens_per_s": n_tok / flash_s}
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def _device_busy(prof) -> dict:
+    """Device time (ms) by kernel name from a torch.profiler run."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    return {e.key: getattr(e, "self_device_time_total", 0.0) / 1e3
+            for e in prof.key_averages()
+            if getattr(e, "device_type", None) == cuda}
 
 
 def main() -> int:
@@ -773,6 +1082,8 @@ def main() -> int:
     launches, archive_dir = phase_workflow()
     phase_globe(archive_dir, globe)
     screen_launches = phase_screen_workflow()
+    flash = phase_flash()
+    lm = phase_lm()
 
     from repro_torch.kernels import _build
     sources = {"track_interp": "track_interp.cu",
@@ -819,6 +1130,24 @@ def main() -> int:
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
         "library_ms": None, "shape": f"C={C} K={K} T={T}",
         "per_shape": screen["per_shape"],
+    })
+    top_name = f"B=1 H=32 KV=8 T={FLASH_LM_T[-1]} S={FLASH_LM_T[-1]} " \
+               f"hd=160 causal bfloat16"
+    top = flash["per_shape"][top_name]
+    rows.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": os.path.relpath(_build.SRC_DIR / "flash_attention.cu",
+                                  HERE),
+        "replaces": "src/repro/kernels/flash_attention.py:124",
+        "launches": lm["launches"],
+        "max_abs_err": flash["max_abs_err"],
+        "rtol": FLASH_F32_TOL, "atol": FLASH_F32_TOL,
+        "bf16_rtol": FLASH_BF16_RTOL, "bf16_atol": FLASH_BF16_ATOL,
+        "ms": top["ms"], "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+        "library_ms": top["library_ms"], "shape": top_name,
+        "per_shape": flash["per_shape"],
+        "lm_forward_tokens_per_s": lm["forward_tokens_per_s"],
     })
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))

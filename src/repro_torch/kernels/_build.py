@@ -27,10 +27,14 @@ SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 # No --use_fast_math: it would swap atan2f/cosf/sqrtf and IEEE division
-# for approximations.  -fmad=false keeps products out of fused adds, as
-# the plain versions compute them.
+# for approximations.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# -fmad=false keeps products out of fused adds, as the plain versions
+# compute them, for the kernels held bitwise to them.  The sources named
+# here are held to a tolerance instead and may fuse: the flash kernel
+# runs about 1.2x faster so on an H100 (kernels/fmad_ab.py times both).
+FMA_SOURCES = ("flash_attention.cu",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,6 +48,10 @@ SIGNATURES = {
     "dynamic_rates_f32": (_P, _P, _P, _I, _I, _F, _P),
     "encounter_screen_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _F, _F, _P),
+    "flash_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                            _P),
+    "flash_attention_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                             _P),
 }
 
 _lock = threading.Lock()
@@ -56,9 +64,15 @@ def _sources() -> list[Path]:
     return sorted(SRC_DIR.glob("*.cu"))
 
 
+def _flags(src: Path) -> tuple[str, ...]:
+    fmad = "true" if src.name in FMA_SOURCES else "false"
+    return NVCC_FLAGS + (f"-fmad={fmad}",)
+
+
 def _digest(sources: list[Path]) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256()
     for src in sources:
+        h.update(" ".join(_flags(src)).encode())
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -82,7 +96,7 @@ def _compile(sources: list[Path], target: Path) -> None:
         obj = work / (src.stem + ".o")
         objs.append(obj)
         procs.append(subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            [nvcc, *_flags(src), "-c", str(src), "-o", str(obj)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     log = []
     failed = []

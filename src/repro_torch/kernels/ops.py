@@ -1,11 +1,12 @@
-"""Public wrappers for the track-processing kernels.
+"""Public wrappers for the kernels.
 
 Port of ``repro/kernels/ops.py``.  Each op runs where its tensors live:
 ``backend='kernel'`` (the default) calls the kernel wrappers, which
 launch the CUDA kernels on CUDA tensors and run the plain versions on
 CPU tensors; ``backend='ref'`` composes the plain versions directly,
-and is only ever the caller's explicit choice.  The segment processor
-and ``chip_smoke.py`` call these, never the kernels directly.
+and is only ever the caller's explicit choice.  The segment processor,
+the LM's attention and ``chip_smoke.py`` call these, never the kernels
+directly.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import torch
 from repro_torch.kernels import ref, segment_pipeline
 from repro_torch.kernels.agl_lookup import agl_lookup as _agl_kernel
 from repro_torch.kernels.dynamic_rates import dynamic_rates as _rates_kernel
+from repro_torch.kernels.flash_attention import (
+    flash_attention as _flash_kernel)
 from repro_torch.kernels.track_interp import track_interp as _interp_kernel
 
 Backend = Literal["kernel", "ref"]
@@ -150,3 +153,17 @@ def process_segments(dem, t_in, v_in, count_in, t_out, count_out, *,
     return segment_pipeline.process_segments(
         dem, t_in, v_in, count_in, t_out, count_out, grid=grid, dt=dt,
         use_kernels=use_kernels)
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    backend: Backend = "kernel") -> torch.Tensor:
+    """Blocked online-softmax attention (GQA): q (B,H,T,hd), k/v
+    (B,KV,S,hd) -> (B,H,T,hd) in q's dtype, query t attending keys
+    <= t + (S - T) when ``causal``.  Views (the attention layer hands
+    over transposed ones) are made contiguous here; the kernel takes any
+    T and S, so nothing is padded.  See ref.flash_attention_ref."""
+    _check_backend(backend)
+    q, k, v = (torch.as_tensor(x).contiguous() for x in (q, k, v))
+    if backend == "ref":
+        return ref.flash_attention_ref(q, k, v, causal=causal).to(q.dtype)
+    return _flash_kernel(q, k, v, causal=causal)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the segment kernels (the correctness reference).
+"""Plain PyTorch versions of the kernels (the correctness reference).
 
 Straightforward, unfused tensor code with the signatures and layouts of
 the JAX package's oracles.  On a CPU tensor each kernel wrapper runs its
@@ -163,3 +163,29 @@ def encounter_screen_ref(lat: torch.Tensor, lon: torch.Tensor,
             dh_m.amin(dim=-1),
             dv_m.amin(dim=-1),
             torch.argmin(dh_m, dim=-1).to(torch.float32))
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True) -> torch.Tensor:
+    """Plain-softmax GQA attention, the flash kernel's plain version.
+
+    q (B, H, T, hd); k, v (B, KV, S, hd) -> (B, H, T, hd) f32, computed
+    in f32 whatever the input dtype.  Causal alignment: query t attends
+    keys <= t + (S - T).  A query row with no key to attend (t < T - S)
+    comes out 0, as in the CUDA kernel; the JAX oracle gives such a row
+    the mean of v instead, and the JAX kernel 0 or a block's share of v
+    depending on its block size.
+    """
+    B, H, T, hd = q.shape
+    KV, S = k.shape[1], k.shape[2]
+    g = H // KV
+    kk = k.repeat_interleave(g, dim=1).float()
+    vv = v.repeat_interleave(g, dim=1).float()
+    s = torch.einsum("bhtd,bhsd->bhts", q.float(), kk) * hd ** -0.5
+    mask = torch.ones((T, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = torch.tril(mask, diagonal=S - T)
+    # Masked scores underflow to exactly 0 in a row that has a valid key;
+    # in a row that has none the softmax is uniform, and the mask zeroes it.
+    p = torch.softmax(torch.where(mask, s, -1e30), dim=-1) * mask
+    return torch.einsum("bhts,bhsd->bhtd", p, vv)

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, and the LM
+path between card and CPU, on the card.
 
 Marked ``cuda``: each test skips when no CUDA device is present, so on
 a CPU-only machine they count as skipped.  On the card:
@@ -274,3 +275,123 @@ def test_screen_workflow_processes_spawns_workers_onto_card(dev, tmp_path):
         "organize", "archive", "store-build", "process", "screen"]
     assert doc["phases"][-1][1] > 0
     assert doc["got"] == doc["want"] and doc["got"]
+
+
+# ---------------------------------------------------------------------------
+# Flash attention and the LM path
+# ---------------------------------------------------------------------------
+
+def _qkv(dev, B, H, KV, T, S, hd, seed, dtype=torch.float32):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=dev).to(dtype)
+            for shape in ((B, H, T, hd), (B, KV, S, hd), (B, KV, S, hd))]
+
+
+@pytest.mark.parametrize("B,H,KV,T,S,hd,causal", [
+    (1, 4, 2, 256, 256, 64, True),
+    (2, 8, 2, 128, 384, 64, True),
+    (1, 2, 2, 256, 256, 128, False),
+    (1, 12, 4, 384, 384, 192, True),
+    (2, 4, 1, 256, 512, 64, True),
+    (1, 4, 4, 200, 300, 64, True),
+    (1, 32, 8, 333, 333, 160, True),     # stablelm's heads, ragged T
+    (1, 4, 2, 256, 130, 160, True),      # T > S: rows with no key
+    (2, 6, 3, 65, 1, 40, True),
+    (1, 4, 2, 100, 70, 192, False),
+])
+def test_flash_attention_kernel(dev, B, H, KV, T, S, hd, causal):
+    from repro_torch.kernels import flash_attention as flash_mod
+    q, k, v = _qkv(dev, B, H, KV, T, S, hd, seed=T + S + hd)
+    before = flash_mod.launches
+    got = flash_mod.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_mod.launches == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    if causal and T > S:
+        assert not got[:, :, :T - S].any()
+
+
+def test_flash_attention_kernel_bf16(dev):
+    """A bf16 output is one bf16 rounding (unit roundoff 2^-8) of the
+    plain version's f32 output; the last shape is the one the full-width
+    stablelm-12b forward gives the kernel."""
+    from repro_torch.kernels import ops
+    for shape in ((1, 4, 2, 128, 128, 64), (1, 32, 8, 512, 512, 160),
+                  (2, 32, 8, 2048, 2048, 160)):
+        q, k, v = _qkv(dev, *shape, seed=7, dtype=torch.bfloat16)
+        got = ops.flash_attention(q, k, v)
+        assert got.dtype == torch.bfloat16
+        want = ref.flash_attention_ref(q, k, v)
+        torch.testing.assert_close(got.float(), want, rtol=2 ** -8,
+                                   atol=1e-5)
+
+
+def test_flash_attention_takes_strided_views(dev):
+    """The attention layer's transposed (B, T, H, hd) views go through
+    ops.flash_attention, which makes them contiguous; the kernel wrapper
+    itself refuses a strided view."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import ops
+    q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2)
+               for x in _qkv(dev, 2, 8, 2, 96, 96, 160, seed=3))
+    assert not q.is_contiguous()
+    got = ops.flash_attention(q, k, v)
+    torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v),
+                               rtol=2e-5, atol=2e-5)
+    with pytest.raises(ValueError, match="not contiguous"):
+        flash_mod.flash_attention(q, k, v)
+
+
+def test_flash_attention_grid_past_65535_blocks(dev):
+    # B * H * q-tiles = 1100 * 60 * 1 = 66000 blocks on grid.x.
+    from repro_torch.kernels import ops
+    q, k, v = _qkv(dev, 1100, 60, 4, 64, 64, 16, seed=5)
+    torch.testing.assert_close(ops.flash_attention(q, k, v),
+                               ref.flash_attention_ref(q, k, v),
+                               rtol=2e-5, atol=2e-5)
+
+
+def _reduced_lm(name, **kw):
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_arch(name, reduced=True),
+                              param_dtype="float32",
+                              activation_dtype="float32", **kw)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    return cfg, params
+
+
+@pytest.mark.parametrize("name", ["stablelm-12b", "granite-34b"])
+def test_reduced_forward_card_matches_cpu(dev, name):
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.models import model as M
+    cfg, params = _reduced_lm(name, attention_impl="flash")
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 200))
+    want = M.forward(cfg, params, {"tokens": toks})
+    on_card = M.tree_map(lambda t: t.to(dev), params)
+    before = flash_mod.launches
+    got = M.forward(cfg, on_card, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert flash_mod.launches - before == cfg.n_layers
+    rel = (got.cpu() - want).abs().max() / want.abs().max()
+    assert rel.item() < 1e-4
+
+
+def test_reduced_server_tokens_card_match_cpu(dev):
+    from repro_torch.serving import BatchedServer, Request
+    cfg, params = _reduced_lm("stablelm-12b")
+
+    def run(device):
+        rng = np.random.default_rng(5)
+        reqs = [Request(i, rng.integers(0, cfg.vocab_size,
+                                        int(rng.integers(3, 14))),
+                        max_new_tokens=int(rng.integers(2, 9)))
+                for i in range(7)]
+        server = BatchedServer(cfg, params, slots=3, prompt_len=16,
+                               cache_len=48, device=device)
+        server.serve(reqs)
+        return [r.tokens_out for r in reqs], server.steps
+
+    assert run("cuda") == run("cpu")
