@@ -8,10 +8,14 @@ and the CUDA toolkit:
 
 Phases, each printed as it runs:
 
-1. build   — compile ``src/repro_torch/kernels/csrc/*.cu`` (five
-             kernels, one nvcc each, all started together) for sm_90a;
-             print the build time, ptxas' registers and shared memory
-             per kernel, and the card's name and power limit.
+1. build   — compile ``src/repro_torch/kernels/csrc/*.cu`` (six
+             sources for the five kernels, flash attention having a
+             CUDA-core and a tensor-core source; one nvcc each, all
+             started together) for sm_90a; print the build time,
+             ptxas' registers and shared memory per kernel, the count of
+             HGMMA (wgmma) instructions in the tensor-core flash
+             kernel's SASS (``cuobjdump -sass``; 0 fails), and the
+             card's name and power limit.
 2. kernels — hold each CUDA kernel against its plain PyTorch version on
              the card at the process phase's shapes (B = 1024 rows,
              N = 128 knots, M in {128, 256, 512, 1024}; the AGL gather
@@ -37,18 +41,25 @@ Phases, each printed as it runs:
              same store-derived rows and against the screen tasks re-run
              on the CPU, and the store path's process phase held
              against the zip path's, bitwise.
-6. flash   — the flash-attention kernel against its plain version at the
-             six shapes of tests/test_flash_attention.py in f32 (rtol/atol
-             2e-5), its bf16 case, stablelm-12b's heads (B = 1, H = 32,
-             KV = 8, hd = 160, T = S in {512, 2048, 4096}) in bf16 and
-             f32, and phase 7's own shape (B = 2, T = S = 2048, bf16); a
-             bf16 output within one bf16 rounding of the plain f32 one
-             (rtol 2^-8, atol 1e-5); timed beside the plain version and,
-             at T = S, F.scaled_dot_product_attention (the yardstick only).
+6. flash   — the flash-attention kernels against their plain version at
+             the six shapes of tests/test_flash_attention.py in f32
+             (rtol/atol 2e-5), its bf16 case, stablelm-12b's heads (B =
+             1, H = 32, KV = 8, hd = 160, T = S in {512, 2048, 4096}) in
+             bf16 and f32, and phase 7's own shape (B = 2, T = S = 2048,
+             bf16); a bf16 output within one bf16 rounding of the plain
+             f32 one (rtol 2^-8, atol 1e-5).  Every bf16 shape must go
+             through the tensor-core kernel (route "sm90") and every f32
+             one through the CUDA-core kernel (route counters); each is
+             timed beside the plain version and, at T = S,
+             F.scaled_dot_product_attention (the yardstick only), and a
+             bf16 shape also beside the CUDA-core kernel's bf16 entry,
+             called directly on the same inputs.
 7. lm      — stablelm-12b at full width and depth (40 layers, 12.1 B
              parameters in bf16, random from a seed) on the card: forward
              on 2 x 2048 tokens with attention_impl "flash" (the flash
-             counter zeroed just before, 40 launches read just after) and
+             counters zeroed just before, 40 launches, all on the sm90
+             route, read just after; the kernel's share of the profiled
+             forward's device time) and
              "xla", logits compared; prefill + decode_step against
              forward; BatchedServer (4 slots, prompt 64, cache 256): one
              warm-up request, then 3 rounds of 8 seeded requests of 16
@@ -219,18 +230,59 @@ def phase_build() -> str:
     _build.lib()
     say("build", f"libkernels built in {_build.build_seconds:.2f}s "
                  f"(load {time.perf_counter() - t0:.2f}s) for sm_90a")
-    source = "?"
-    for line in _build.build_log().splitlines():
+    source, kernel, found = "?", "", []
+    log = _build.build_log()
+    for line in log.splitlines():
         if line.startswith("== "):
-            source = line[3:]
-        elif "registers" in line or "spill" in line.lower():
-            say("build", f"{source}: ptxas" + line.split("ptxas", 1)[-1])
+            source, kernel = line[3:], ""
+        elif "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+        elif ("registers" in line or "spill" in line.lower()
+              or "Performance Loss" in line):
+            text, name = line.split("ptxas", 1)[-1], kernel
+            if "Performance Loss" in line:     # printed before its kernel
+                text, _, rest = text.partition("for the function")
+                name = rest.split("'")[1] if "'" in rest else name
+            found.append((source, name, text))
+    names = demangle({name for _, name, _ in found if name})
+    for source, name, text in found:
+        say("build", f"{source} {names.get(name, name)}: ptxas{text}")
     n = len(_build._sources())
-    if n != 5 or "flash_attention.cu" not in _build.build_log():
-        raise AssertionError(f"expected five kernel sources, built {n}")
+    if n != 6 or "flash_attention_sm90.cu" not in log:
+        raise AssertionError(f"expected six kernel sources, built {n}")
+    hgmma = hgmma_count(_build.library_path())
+    say("build", f"flash_attention_sm90.cu: {hgmma} HGMMA instructions in "
+                 f"its kernels' SASS (cuobjdump -sass)")
+    if hgmma == 0:
+        raise AssertionError("the sm90 flash kernel has no HGMMA: it does "
+                             "not run on the tensor cores")
     card = card_line()
     say("build", f"card: {card}")
     return card
+
+
+def demangle(mangled) -> dict:
+    """Each mangled kernel name's function name and template arguments,
+    from the CUDA toolkit's cu++filt."""
+    mangled = sorted(mangled)
+    if not mangled:
+        return {}
+    cufilt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    out = subprocess.run([cufilt, "-p", *mangled], capture_output=True,
+                         text=True, check=True, timeout=60).stdout
+    return dict(zip(mangled, out.splitlines()))
+
+
+def hgmma_count(library) -> int:
+    """HGMMA instructions in the SASS of the sm90 flash kernels."""
+    cuobjdump = (shutil.which("cuobjdump")
+                 or "/usr/local/cuda/bin/cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(library)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    return sum(fn.count("HGMMA") for fn in sass.split("Function : ")
+               if fn.startswith("_") and "flash_attention_sm90" in
+               fn.split("\n", 1)[0])
 
 
 def phase_kernels(globe_dem) -> dict:
@@ -777,26 +829,30 @@ def profile_screen_tasks(wf, tasks) -> None:
                      "measured"))
 
 
-def flash_bound(B, H, KV, T, S, hd, causal, itemsize, ops_per_s):
+def flash_bound(B, H, KV, T, S, hd, causal, itemsize, ops_per_s,
+                ops_per_pair=None):
     """(ms, "bytes" | "operations"): q, k, v read once and o written once
-    against 4 * hd operations for each (query, key) pair the mask keeps
-    (2 hd for the score, 2 hd for the weighted sum)."""
+    against ``ops_per_pair`` operations (default 4 * hd: 2 hd for the
+    score, 2 hd for the weighted sum) for each (query, key) pair the mask
+    keeps."""
     # Query t keeps keys 0 .. t + S - T, clipped to [0, S].
     pairs = (sum(min(max(t + S - T + 1, 0), S) for t in range(T))
              if causal else T * S)
     nbytes = itemsize * (2 * B * H * T * hd + 2 * B * KV * S * hd)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 4 * hd * pairs * B * H / ops_per_s * 1e3
+    t_ops = (ops_per_pair or 4 * hd) * pairs * B * H / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def phase_flash() -> dict:
-    """The flash kernel against its plain version at every shape, timed
-    beside the plain version and, at T == S, SDPA."""
+    """The flash kernels against their plain version at every shape, each
+    through the route its dtype and head_dim select, timed beside the
+    plain version, at T == S SDPA, and for bf16 the CUDA-core kernel's
+    bf16 entry on the same inputs."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(13)
@@ -810,45 +866,87 @@ def phase_flash() -> dict:
         q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
                    for shape in ((B, H, T, hd), (B, KV, S, hd),
                                  (B, KV, S, hd)))
-        got = flash_attention(q, k, v, causal=causal)
+        bf16 = dt == torch.bfloat16
+        route = "sm90" if bf16 else "cuda_core"
+        before = dict(flash_mod.launches_by_route)
+        got = flash_mod.flash_attention(q, k, v, causal=causal)
         want = ref.flash_attention_ref(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        err = (got.float() - want).abs().max().item()
-        rtol, atol = ((FLASH_F32_TOL, FLASH_F32_TOL) if dt == torch.float32
-                      else (FLASH_BF16_RTOL, FLASH_BF16_ATOL))
-        ok = torch.allclose(got.float(), want, rtol=rtol, atol=atol)
-        tol = f"rtol {rtol:.3g}, atol {atol:.3g}"
         name = f"B={B} H={H} KV={KV} T={T} S={S} hd={hd} " \
                f"{'causal' if causal else 'full'} {str(dt)[6:]}"
+        routed = {r: flash_mod.launches_by_route[r] - before[r]
+                  for r in before}
+        if routed != {r: int(r == route) for r in before}:
+            raise AssertionError(f"flash_attention at {name} went through "
+                                 f"{routed}, expected route {route}")
+        rtol, atol = ((FLASH_BF16_RTOL, FLASH_BF16_ATOL) if bf16
+                      else (FLASH_F32_TOL, FLASH_F32_TOL))
+
+        def gate(out):
+            """(max |out - plain|, whether every element meets the gate,
+            share of elements outside it)."""
+            d = (out.float() - want).abs()
+            outside = d > atol + rtol * want.abs()
+            return (d.max().item(), not bool(outside.any()),
+                    outside.float().mean().item())
+
+        err, ok, _ = gate(got)
+        tol = f"rtol {rtol:.3g}, atol {atol:.3g}"
         if not ok:
             raise AssertionError(f"flash_attention at {name} disagrees with "
                                  f"its plain version: max |diff| {err}")
         runs = 10 if T * S >= 2048 * 2048 else TIMED_RUNS
-        row = {"max_abs_err": err,
-               "ms": device_ms(lambda: flash_attention(q, k, v,
-                                                       causal=causal),
-                               runs=runs),
+        row = {"route": route, "max_abs_err": err,
+               "ms": device_ms(lambda: flash_mod.flash_attention(
+                   q, k, v, causal=causal), runs=runs),
                "plain_ms": device_ms(lambda: ref.flash_attention_ref(
                    q, k, v, causal=causal), runs=runs),
-               "library_ms": None}
+               "library_ms": None, "cuda_core_ms": None}
+        if bf16:
+            # The CUDA-core kernel's bf16 entry (the route of every bf16
+            # input before the tensor-core kernel), called directly on
+            # the same inputs.
+            old = flash_mod._launch("cuda_core", q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            row["cuda_core_max_abs_err"], old_ok, _ = gate(old)
+            if not old_ok:
+                raise AssertionError(f"the CUDA-core bf16 entry at {name} "
+                                     f"disagrees with the plain version")
+            del old
+            row["cuda_core_ms"] = device_ms(lambda: flash_mod._launch(
+                "cuda_core", q, k, v, causal=causal), runs=runs)
         if T == S:
             lib = F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                                  enable_gqa=True)
-            row["library_max_abs_err"] = (lib.float() - want).abs().max() \
-                .item()
+            (row["library_max_abs_err"], _,
+             row["library_outside_gate"]) = gate(lib)
+            del lib
             row["library_ms"] = device_ms(
                 lambda: F.scaled_dot_product_attention(
                     q, k, v, is_causal=causal, enable_gqa=True), runs=runs)
-        rate = BF16_OPS_PER_S if dt == torch.bfloat16 else F32_OPS_PER_S
+        rate = BF16_OPS_PER_S if bf16 else F32_OPS_PER_S
         row["bound_ms"], row["bound_by"] = flash_bound(
             B, H, KV, T, S, hd, causal, q.element_size(), rate)
+        if bf16:
+            # The sm90 kernel's own floor: 2 hd for the score and 4 hd for
+            # P.V issued twice (hi and lo) per kept pair.
+            floor_ms, _ = flash_bound(
+                B, H, KV, T, S, hd, causal, q.element_size(), rate,
+                ops_per_pair=6 * hd)
         lib = ("-" if row["library_ms"] is None
                else f"{row['library_ms']:.4f}")
-        say("flash", f"{name}: max|diff| {err:.3g} ({tol}); kernel "
-                     f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-                     f"library {lib} ms, bound {row['bound_ms']:.4f} ms "
-                     f"({row['bound_by']}), {row['ms'] / row['bound_ms']:.1f}"
-                     f"x the bound")
+        extra = ("" if not bf16 else
+                 f", CUDA-core bf16 entry {row['cuda_core_ms']:.4f} ms "
+                 f"({row['cuda_core_ms'] / row['ms']:.1f}x), design floor "
+                 f"{floor_ms:.4f} ms")
+        if "library_outside_gate" in row:
+            extra += (f"; SDPA outside the gate: "
+                      f"{row['library_outside_gate']:.4f} of the outputs")
+        say("flash", f"{name} [{route}]: max|diff| {err:.3g} ({tol}); "
+                     f"kernel {row['ms']:.4f} ms, plain "
+                     f"{row['plain_ms']:.4f} ms, library {lib} ms, bound "
+                     f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
+                     f"{row['ms'] / row['bound_ms']:.1f}x the bound" + extra)
         res["per_shape"][name] = row
         res["max_abs_err"] = max(res["max_abs_err"], err)
         del q, k, v, got, want
@@ -905,8 +1003,11 @@ def phase_lm() -> dict:
     del _
     torch.cuda.reset_peak_memory_stats()
     flash_mod.launches = 0
+    for r in flash_mod.launches_by_route:
+        flash_mod.launches_by_route[r] = 0
     lf, flash_s = timed_forward(cfg_flash)
     launches = flash_mod.launches
+    by_route = dict(flash_mod.launches_by_route)
     peak_flash = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     lx, xla_s = timed_forward(cfg)
@@ -918,11 +1019,13 @@ def phase_lm() -> dict:
               f"{peak_flash / 1e9:.2f} GB), xla {xla_s:.3f}s "
               f"({n_tok / xla_s:.1f} tokens/s, peak {peak_xla / 1e9:.2f} "
               f"GB), first (xla, warm-up) {warm_s:.3f}s; flash launches "
-              f"{launches}; max|flash - xla| / max|xla| {rel:.3g} (gate "
-              f"{LM_REL_GATE}); finite {finite}")
-    if launches != cfg.n_layers:
+              f"{launches} by route {by_route}; max|flash - xla| / max|xla| "
+              f"{rel:.3g} (gate {LM_REL_GATE}); finite {finite}")
+    if launches != cfg.n_layers or by_route != {"sm90": cfg.n_layers,
+                                                "cuda_core": 0}:
         raise AssertionError(f"flash forward launched the kernel {launches} "
-                             f"times, expected {cfg.n_layers}")
+                             f"times ({by_route}), expected "
+                             f"{cfg.n_layers}, all on the sm90 route")
     if not finite or tuple(lf.shape) != (LM_B, LM_T, cfg.vocab_size):
         raise AssertionError(f"forward logits: shape {tuple(lf.shape)}, "
                              f"finite {finite}")
@@ -939,9 +1042,13 @@ def phase_lm() -> dict:
     busy = _device_busy(prof)
     top = sorted(busy.items(), key=lambda kv: -kv[1])[:8]
     busy_ms = sum(busy.values())
+    flash_ms = sum(v for k, v in busy.items() if "flash_attention" in k)
+    flash_share = flash_ms / busy_ms
     say("lm", f"profiled flash forward {prof_s * 1e3:.1f} ms wall, device "
               f"busy {busy_ms:.1f} ms (idle share "
-              f"{1 - busy_ms / (prof_s * 1e3):.4f}); top: " + "; ".join(
+              f"{1 - busy_ms / (prof_s * 1e3):.4f}); flash kernel "
+              f"{flash_ms:.1f} ms ({flash_share:.4f} of device "
+              f"time); top: " + "; ".join(
                   f"{k[:48]} {v:.1f} ms" for k, v in top))
 
     # prefill(T) + decode_step against forward(T + 1).
@@ -1033,7 +1140,9 @@ def phase_lm() -> dict:
                   f"{k[:48]} {v:.1f} ms" for k, v in top))
     del server, params
     torch.cuda.empty_cache()
-    return {"launches": launches, "forward_tokens_per_s": n_tok / flash_s}
+    return {"launches": launches, "launches_by_route": by_route,
+            "forward_tokens_per_s": n_tok / flash_s,
+            "forward_flash_share": flash_share}
 
 
 def _leaves(tree):
@@ -1136,8 +1245,12 @@ def main() -> int:
     top = flash["per_shape"][top_name]
     rows.append({
         "name": "flash_attention", "route": "cuda",
-        "source": os.path.relpath(_build.SRC_DIR / "flash_attention.cu",
+        "source": os.path.relpath(_build.SRC_DIR / "flash_attention_sm90.cu",
                                   HERE),
+        "cuda_core_source": os.path.relpath(
+            _build.SRC_DIR / "flash_attention.cu", HERE),
+        "cuda_core_ms": top["cuda_core_ms"],
+        "launches_by_route": lm["launches_by_route"],
         "replaces": "src/repro/kernels/flash_attention.py:124",
         "launches": lm["launches"],
         "max_abs_err": flash["max_abs_err"],
@@ -1148,6 +1261,7 @@ def main() -> int:
         "library_ms": top["library_ms"], "shape": top_name,
         "per_shape": flash["per_shape"],
         "lm_forward_tokens_per_s": lm["forward_tokens_per_s"],
+        "lm_forward_flash_share": lm["forward_flash_share"],
     })
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))

@@ -32,9 +32,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # -fmad=false keeps products out of fused adds, as the plain versions
 # compute them, for the kernels held bitwise to them.  The sources named
-# here are held to a tolerance instead and may fuse: the flash kernel
-# runs about 1.2x faster so on an H100 (kernels/fmad_ab.py times both).
-FMA_SOURCES = ("flash_attention.cu",)
+# here are held to a tolerance instead and may fuse: the CUDA-core flash
+# kernel runs about 1.2x faster so on an H100 (kernels/fmad_ab.py times
+# both); the tensor-core one is held to the same tolerance (there the
+# flag decides little: its exponent argument is an explicit fmaf).
+FMA_SOURCES = ("flash_attention.cu", "flash_attention_sm90.cu")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -52,6 +54,8 @@ SIGNATURES = {
                             _P),
     "flash_attention_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                              _P),
+    "flash_attention_bf16_sm90": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                  _F, _P),
 }
 
 _lock = threading.Lock()
@@ -129,7 +133,7 @@ def lib() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         sources = _sources()
-        target = BUILD_DIR / f"libkernels-{_digest(sources)}.so"
+        target = library_path()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         with open(BUILD_DIR / "build.lock", "w") as lock:
             fcntl.flock(lock, fcntl.LOCK_EX)
@@ -146,11 +150,15 @@ def lib() -> ctypes.CDLL:
         return _lib
 
 
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    return BUILD_DIR / f"libkernels-{_digest(_sources())}.so"
+
+
 def build_log() -> str:
     """What nvcc and ptxas said for the current library (registers,
     shared memory, spills per kernel)."""
-    target = BUILD_DIR / f"libkernels-{_digest(_sources())}.so"
-    log = target.with_suffix(".log")
+    log = library_path().with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
 

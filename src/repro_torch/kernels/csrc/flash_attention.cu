@@ -20,8 +20,10 @@
 // the 16 threads that share a row reduce its maximum and sum with warp
 // shuffles, and the probabilities go through shared memory into a
 // 4 rows x ceil(hd/16) columns register block of acc.  Tiles strictly
-// above the causal diagonal are never visited.  Tensor cores (wgmma,
-// TMA staging, warp specialisation) are the later redesign.
+// above the causal diagonal are never visited.  This kernel serves f32
+// inputs and bf16 inputs whose head_dim is not a multiple of 8; other
+// bf16 inputs go to the tensor-core kernel, flash_attention_sm90.cu
+// (the routing rule is in kernels/flash_attention.py).
 //
 // Numerics follow the TPU kernel: q is scaled by hd^-0.5 before the
 // product, scores and statistics are f32, acc is rescaled by

@@ -1,5 +1,9 @@
-"""Time ``csrc/flash_attention.cu`` built with ``-fmad=true`` and with
-``-fmad=false``: the measurement behind ``_build.FMA_SOURCES``.
+"""Time ``csrc/flash_attention.cu``, the CUDA-core flash kernel, built
+with ``-fmad=true`` and with ``-fmad=false``: the measurement behind its
+entry in ``_build.FMA_SOURCES``.  That source serves f32 inputs and bf16
+inputs whose head_dim is not a multiple of 8; both of its entries are
+called directly here (bf16 at hd 160 is otherwise routed to
+``csrc/flash_attention_sm90.cu``).
 
 Run from the repository root on a machine with a card and ``nvcc``::
 

@@ -352,6 +352,100 @@ def test_flash_attention_grid_past_65535_blocks(dev):
                                rtol=2e-5, atol=2e-5)
 
 
+SM90_HEAD_DIMS = (24, 40, 64, 128, 160, 192)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("T,S", [(200, 200), (130, 333), (300, 111)],
+                         ids=["T=S", "T<S", "T>S"])
+@pytest.mark.parametrize("hd", SM90_HEAD_DIMS)
+def test_flash_attention_sm90_route(dev, hd, T, S, causal):
+    """bf16 goes through the tensor-core kernel at every head_dim of the
+    configs and the JAX tests, with T = S, T < S (chunked prefill) and
+    T > S (rows with no key exactly 0), S never a multiple of the 64-key
+    tile, causal and full; each output within one bf16 rounding of the
+    plain f32 output."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    q, k, v = _qkv(dev, 2, 8, 2, T, S, hd, seed=hd + T + S,
+                   dtype=torch.bfloat16)
+    before = dict(flash_mod.launches_by_route)
+    got = flash_mod.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_mod.launches_by_route == {
+        "sm90": before["sm90"] + 1, "cuda_core": before["cuda_core"]}
+    assert got.dtype == torch.bfloat16
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want, rtol=2 ** -8, atol=1e-5)
+    if causal and T > S:
+        assert not got[:, :, :T - S].any()
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("T,S", [(200, 200), (130, 333), (300, 111)],
+                         ids=["T=S", "T<S", "T>S"])
+@pytest.mark.parametrize("hd", (12, 100))
+def test_flash_attention_cuda_core_bf16_route(dev, hd, T, S, causal):
+    """bf16 with a head_dim that is not a multiple of 8 (TMA's 16-byte
+    row stride) stays on the CUDA-core kernel's bf16 entry, held to the
+    same one-bf16-rounding gate."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    q, k, v = _qkv(dev, 2, 8, 2, T, S, hd, seed=hd + T + S,
+                   dtype=torch.bfloat16)
+    before = dict(flash_mod.launches_by_route)
+    got = flash_mod.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_mod.launches_by_route == {
+        "sm90": before["sm90"], "cuda_core": before["cuda_core"] + 1}
+    assert got.dtype == torch.bfloat16
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want, rtol=2 ** -8, atol=1e-5)
+    if causal and T > S:
+        assert not got[:, :, :T - S].any()
+
+
+def test_flash_attention_sm90_takes_strided_views(dev):
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import ops
+    q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2)
+               for x in _qkv(dev, 2, 8, 2, 96, 96, 160, seed=3,
+                             dtype=torch.bfloat16))
+    assert not q.is_contiguous()
+    before = flash_mod.launches_by_route["sm90"]
+    got = ops.flash_attention(q, k, v)
+    assert flash_mod.launches_by_route["sm90"] == before + 1
+    torch.testing.assert_close(got.float(), ref.flash_attention_ref(q, k, v),
+                               rtol=2 ** -8, atol=1e-5)
+
+
+def test_flash_attention_sm90_copies_unaligned_bases(dev):
+    """TMA reads from 16-byte-aligned bases: a contiguous view that starts
+    2 bytes in is copied by the wrapper, and stays on the sm90 route."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    shapes = ((1, 4, 70, 64), (1, 2, 90, 64), (1, 2, 90, 64))
+    g = torch.Generator(device=dev).manual_seed(9)
+    q, k, v = (torch.randn(math.prod(s) + 1, generator=g, device=dev)
+               .to(torch.bfloat16)[1:].view(s) for s in shapes)
+    assert q.data_ptr() % 16 and q.is_contiguous()
+    before = flash_mod.launches_by_route["sm90"]
+    got = flash_mod.flash_attention(q, k, v)
+    assert flash_mod.launches_by_route["sm90"] == before + 1
+    torch.testing.assert_close(got.float(), ref.flash_attention_ref(q, k, v),
+                               rtol=2 ** -8, atol=1e-5)
+
+
+def test_flash_attention_sm90_grid_past_65535_blocks(dev):
+    # B * H * 128-row q tiles = 1100 * 60 * 1 = 66000 CTAs on grid.x.
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import ops
+    q, k, v = _qkv(dev, 1100, 60, 4, 64, 64, 16, seed=5,
+                   dtype=torch.bfloat16)
+    before = flash_mod.launches_by_route["sm90"]
+    got = ops.flash_attention(q, k, v)
+    assert flash_mod.launches_by_route["sm90"] == before + 1
+    torch.testing.assert_close(got.float(), ref.flash_attention_ref(q, k, v),
+                               rtol=2 ** -8, atol=1e-5)
+
+
 def _reduced_lm(name, **kw):
     import dataclasses
     from repro_torch.configs import get_arch

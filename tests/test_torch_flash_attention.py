@@ -118,3 +118,90 @@ def test_wrapper_never_runs_plain_version_off_the_cpu():
     with pytest.raises(ValueError, match="not cuda"):
         flash_mod.flash_attention(q, q, q)
     assert flash_mod.launches == before
+
+
+@pytest.mark.parametrize("dtype,hd,want", [
+    (torch.bfloat16, 24, "sm90"), (torch.bfloat16, 40, "sm90"),
+    (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 128, "sm90"),
+    (torch.bfloat16, 160, "sm90"), (torch.bfloat16, 192, "sm90"),
+    (torch.bfloat16, 12, "cuda_core"), (torch.bfloat16, 100, "cuda_core"),
+    (torch.float32, 160, "cuda_core"), (torch.float32, 64, "cuda_core"),
+])
+def test_route_rule(dtype, hd, want):
+    """bf16 with head_dim % 8 == 0 goes to the tensor-core kernel; f32 and
+    any other bf16 head_dim stay on the CUDA-core kernel.  Every
+    head_dim of the configs and the JAX tests takes the sm90 route in
+    bf16."""
+    assert flash_mod.route(dtype, hd) == want
+
+
+def _emulate_sm90(q, k, v, *, causal, split_p):
+    """The sm90 kernel's arithmetic on bf16 inputs, in f32 on the CPU.
+
+    Per 64-key tile: S = q k^T from the raw bf16 values (each product
+    exact in f32, f32 sums), scaled by hd^-0.5 afterwards; the online
+    softmax in f32 (masked scores -inf, l summed from the f32 p, acc
+    rescaled by exp(m_prev - m_new)); P.V with P split into hi = bf16(p)
+    and lo = bf16(p - hi), both into the f32 acc (``split_p``), or P
+    rounded once to bf16; acc / l rounded to bf16 once.
+    """
+    B, H, T, hd = q.shape
+    KV, S = k.shape[1], k.shape[2]
+    g = H // KV
+    qf = q.float()
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    m = torch.full((B, H, T, 1), -torch.inf)
+    l = torch.zeros((B, H, T, 1))
+    acc = torch.zeros((B, H, T, hd))
+    t = torch.arange(T)[:, None]
+    for k0 in range(0, S, 64):
+        cols = torch.arange(k0, min(k0 + 64, S))
+        s = (qf @ kf[:, :, cols].transpose(-1, -2)) * hd ** -0.5
+        if causal:
+            s = torch.where(cols[None, :] <= t + (S - T), s, -torch.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        m_use = torch.where(m_new == -torch.inf, 0.0, m_new)
+        p = torch.exp(s - m_use)
+        corr = torch.exp(m - m_use)
+        l = l * corr + p.sum(-1, keepdim=True)
+        hi = p.bfloat16().float()
+        pv = hi @ vf[:, :, cols]
+        if split_p:
+            pv = pv + (p - hi).bfloat16().float() @ vf[:, :, cols]
+        acc = acc * corr + pv
+        m = m_new
+    return torch.where(l > 0, acc / l, 0.0).bfloat16()
+
+
+def _stablelm_heads_bf16():
+    """stablelm-12b's head shape (hd 160, GQA 4:1) at T = S = 512, as
+    bf16 tensors and the JAX oracle's f32 output on the same values."""
+    rng = np.random.default_rng(14)
+    arrs = [rng.normal(size=s).astype(np.float32)
+            for s in ((1, 8, 512, 160), (1, 2, 512, 160), (1, 2, 512, 160))]
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in arrs)
+    want = np.asarray(jax_ref.flash_attention_ref(
+        *(jnp.asarray(t.float().numpy()) for t in (tq, tk, tv))))
+    return tq, tk, tv, want
+
+
+def test_sm90_arithmetic_meets_one_bf16_rounding():
+    """P split into bf16 hi and lo keeps the kernel's bf16 output within
+    one bf16 rounding (rtol 2^-8, atol 1e-5) of the JAX oracle's f32
+    output on the same bf16 values."""
+    tq, tk, tv, want = _stablelm_heads_bf16()
+    got = _emulate_sm90(tq, tk, tv, causal=True, split_p=True)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2 ** -8,
+                               atol=1e-5)
+
+
+def test_one_bf16_rounding_of_p_breaks_the_gate():
+    """Rounding P once to bf16 before P.V, as FlashAttention-2/3 do on the
+    tensor cores, puts a large share of outputs outside that gate: the
+    reason the kernel issues P.V twice (hi and lo)."""
+    tq, tk, tv, want = _stablelm_heads_bf16()
+    got = _emulate_sm90(tq, tk, tv, causal=True, split_p=False)
+    outside = np.abs(got.float().numpy() - want) > 1e-5 + 2 ** -8 * np.abs(
+        want)
+    assert outside.mean() > 0.05
