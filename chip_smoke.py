@@ -14,16 +14,21 @@ Phases, each printed as it runs:
              started together) for sm_90a; print the build time,
              ptxas' registers and shared memory per kernel, the count of
              HGMMA (wgmma) instructions in the tensor-core flash
-             kernel's SASS (``cuobjdump -sass``; 0 fails), and the
+             kernel's SASS (``cuobjdump -sass``; 0 fails), the SASS
+             instructions per pair-sample in the inner loop of each
+             encounter-screen kernel (its design floor's count), and the
              card's name and power limit.
 2. kernels — hold each CUDA kernel against its plain PyTorch version on
              the card at the process phase's shapes (B = 1024 rows,
              N = 128 knots, M in {128, 256, 512, 1024}; the AGL gather
              on the 30-arc-second GLOBE-resolution DEM, 3121 x 7081 f32)
              and the encounter screen at (C, K, T) cell batches up to
-             K = 240 rows and T = 4608 samples, and time kernel, plain
-             version and, where one exists, the single PyTorch call
-             computing the same function.
+             K = 240 rows and T = 4608 samples and at the screen
+             workflow's own one-cell K = 8 launches (bitwise, with the
+             regime and strips ``plan`` chose, the design floor and the
+             earlier design's time), and time kernel, plain version
+             and, where one exists, the single PyTorch call computing
+             the same function.
 3. workflow— the port's TrackWorkflow end to end on the card (threads,
              8 workers, 4 tasks per message, 8 raw files at scale 500),
              with every kernel's launch counter zeroed just before and
@@ -40,7 +45,9 @@ Phases, each printed as it runs:
              candidates held against the brute-force screen over the
              same store-derived rows and against the screen tasks re-run
              on the CPU, and the store path's process phase held
-             against the zip path's, bitwise.
+             against the zip path's, bitwise; the screen launches by
+             padded (K, T) shape; 200 screen tasks profiled (host split,
+             device busy time, the screen kernels' own device time).
 6. flash   — the flash-attention kernels against their plain version at
              the six shapes of tests/test_flash_attention.py in f32
              (rtol/atol 2e-5), its bf16 case, stablelm-12b's heads (B =
@@ -76,6 +83,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -97,9 +105,21 @@ TOL = {"track_interp": (1e-5, 1e-4), "agl_lookup": (1e-4, 1e-2),
        "dynamic_rates": (1e-4, 1e-3), "encounter_screen": (1e-5, 1e-2)}
 # Encounter-screen cell batches (C cells, K rows, T samples): many small
 # cells, mid-size, the densest cell the aerodrome_dense manifest gives
-# (237 rows, 240 padded), and that at an hour-long union grid.
+# (237 rows, 240 padded), and that at an hour-long union grid; then the
+# screen workflow's own launches, one cell of at most 4 rows (K = 8) at
+# three union-grid widths.
 SCREEN_SHAPES = ((256, 8, 1024), (32, 64, 1024), (8, 240, 1024),
-                 (4, 240, 4608))
+                 (4, 240, 4608), (1, 8, 128), (1, 8, 1024), (1, 8, 4608))
+# The shape of the kernels line's screen row (the kernel table's).
+SCREEN_TOP_SHAPE = (4, 240, 4608)
+# The earlier screen kernel's times (one block per cell and pair tile,
+# each walking the whole time axis) on an H100 80GB HBM3 at 700 W, as
+# PERF.md records them, printed beside this run's.
+SCREEN_EARLIER_MS = {(256, 8, 1024): 0.4015, (32, 64, 1024): 0.7221,
+                  (8, 240, 1024): 1.1674, (4, 240, 4608): 3.6918}
+# SIMT lanes an SM issues per clock (4 schedulers x 32), for the screen
+# kernels' design floor.
+LANES_PER_SM_CLOCK = 128
 SCREEN_H_M, SCREEN_V_M = 926.0, 152.4
 # f32 operations per jointly valid pair-sample (i < j), from
 # csrc/encounter_screen.cu: val product and its test (2), dn (2), mean
@@ -224,7 +244,7 @@ def bucket_inputs(rng, W: int):
     return t_in, v_in, count_in, t_out, count_out
 
 
-def phase_build() -> str:
+def phase_build() -> tuple[str, dict]:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     _build.lib()
@@ -256,9 +276,16 @@ def phase_build() -> str:
     if hgmma == 0:
         raise AssertionError("the sm90 flash kernel has no HGMMA: it does "
                              "not run on the tensor cores")
+    floor = screen_sass_per_pair_sample(_build.library_path())
+    for regime, f in sorted(floor.items()):
+        say("build", f"encounter_screen.cu {regime}-K kernel: "
+                     f"{f['instructions']} SASS instructions in its inner "
+                     f"loop for {f['pair_samples']} pair-samples = "
+                     f"{f['per_pair_sample']:.2f} per pair-sample "
+                     f"(cuobjdump -sass)")
     card = card_line()
     say("build", f"card: {card}")
-    return card
+    return card, floor
 
 
 def demangle(mangled) -> dict:
@@ -283,6 +310,55 @@ def hgmma_count(library) -> int:
     return sum(fn.count("HGMMA") for fn in sass.split("Function : ")
                if fn.startswith("_") and "flash_attention_sm90" in
                fn.split("\n", 1)[0])
+
+
+def screen_sass_per_pair_sample(library) -> dict:
+    """SASS instructions per pair-sample of each encounter-screen kernel's
+    inner loop, from ``cuobjdump -sass``: the smallest loop (a backward
+    branch and its target) that holds a MUFU.RSQ, one of which each
+    pair-sample's sqrtf issues, counted without NOPs and divided by its
+    MUFU.RSQs.  The slow paths of cosf and sqrtf lie outside it (a
+    call), so this is the fast path's count: a floor per pair-sample."""
+    cuobjdump = (shutil.which("cuobjdump")
+                 or "/usr/local/cuda/bin/cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(library)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    out = {}
+    for fn in sass.split("Function : ")[1:]:
+        name = fn.split("\n", 1)[0]
+        regime = ("small" if "screen_small_kernel" in name else
+                  "large" if "screen_tile_kernel" in name else None)
+        if regime is None:
+            continue
+        ins = [(int(a, 16), text.strip()) for a, text in
+               re.findall(r"/\*([0-9a-f]+)\*/\s+([^;]*);", fn)]
+        best = None
+        for addr, text in ins:
+            m = re.search(r"\bBRA\b.*?\b0x([0-9a-f]+)", text)
+            if not m or int(m.group(1), 16) > addr:
+                continue
+            body = [t for a, t in ins
+                    if int(m.group(1), 16) <= a <= addr and t != "NOP"]
+            rsq = sum("MUFU.RSQ" in t for t in body)
+            if rsq and (best is None or len(body) < best[0]):
+                best = (len(body), rsq)
+        if best is None:
+            raise AssertionError(f"no inner loop with a MUFU.RSQ in {name}")
+        out[regime] = {"instructions": best[0], "pair_samples": best[1],
+                       "per_pair_sample": best[0] / best[1]}
+    if set(out) != {"small", "large"}:
+        raise AssertionError(f"screen kernels' SASS not found: {out}")
+    return out
+
+
+def sm_clock_hz() -> float:
+    """The card's highest SM clock, from nvidia-smi, in Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout
+    return float(out.splitlines()[0]) * 1e6
 
 
 def phase_kernels(globe_dem) -> dict:
@@ -425,14 +501,22 @@ def screen_cells(rng, C: int, K: int, T: int):
     return [x.astype(np.float32) for x in (lat, lon, alt, val)]
 
 
-def phase_screen_kernels() -> dict:
-    """The encounter-screen kernel against its plain version, timed, at
-    every cell-batch shape."""
+def phase_screen_kernels(floor: dict) -> dict:
+    """The encounter-screen kernel against its plain version, bitwise,
+    timed, at every cell-batch shape, with the split the timed launches
+    took (``encounter_screen.last_plan``) and the design floor: ``floor``'s SASS instructions per pair-sample over
+    this run's jointly valid pair-samples, at 128 lanes a clock on every
+    SM at the card's highest SM clock."""
     import numpy as np
     import torch
     from repro_torch.kernels import encounter_screen as screen
 
     dev = torch.device("cuda")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock_hz = sm_clock_hz()
+    say("kernels", f"encounter_screen design floor at {n_sm} SMs x "
+                   f"{LANES_PER_SM_CLOCK} lanes x {clock_hz / 1e6:.0f} MHz "
+                   f"(nvidia-smi clocks.max.sm)")
     rng = np.random.default_rng(12)
     rtol, atol = TOL["encounter_screen"]
     res = {"per_shape": {}, "max_abs_err": 0.0}
@@ -470,25 +554,38 @@ def phase_screen_kernels() -> dict:
         valid_ps = float(((n_t * n_t - n_t) / 2).sum().item())
         nbytes = 4 * C * K * T * 4 + 4 * C * K * K * 4
         b_ms, b_by = bound(nbytes, valid_ps * SCREEN_OPS_PER_PAIR_SAMPLE)
+        earlier = SCREEN_EARLIER_MS.get((C, K, T))
         runs = 10
-        row = {"ms": device_ms(kernel, runs=runs),
+        screen.last_plan = None
+        k_ms = device_ms(kernel, runs=runs)
+        split = screen.last_plan
+        floor_ms = (floor[split.regime]["per_pair_sample"] * valid_ps
+                    / (n_sm * LANES_PER_SM_CLOCK * clock_hz) * 1e3)
+        row = {"ms": k_ms,
                "plain_ms": device_ms(plain, runs=runs),
                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
                "max_abs_err": err, "bitwise": bitwise,
+               "regime": split.regime, "strips": split.strips,
                "hits": int(hit.sum().item()),
                "pairs": C * K * (K - 1) // 2,
                "valid_pair_samples": valid_ps}
         say("kernels", f"encounter_screen C={C} K={K} T={T}: "
                        f"{row['hits']} of {row['pairs']} pairs hit, "
                        f"{valid_ps:.0f} jointly valid pair-samples; "
+                       f"{split.regime}-K regime, {split.strips} strips "
+                       f"({split.block_strips} across blocks, "
+                       f"{split.blocks} blocks); "
                        f"max|diff| {err:.3g} (rtol {rtol}, atol {atol}), "
-                       f"bitwise {bitwise}; kernel {row['ms']:.4f} ms, "
+                       f"bitwise {bitwise}; kernel {row['ms']:.4f} ms "
+                       f"(earlier design: " + (f"{earlier:.4f} ms" if earlier
+                                              else "not timed") + f"), "
                        f"plain {row['plain_ms']:.4f} ms, library - ms, "
-                       f"bound {b_ms:.4f} ms ({b_by})")
-        if not ok:
+                       f"bound {b_ms:.4g} ms ({b_by}), design floor "
+                       f"{floor_ms:.4g} ms")
+        if not ok or not bitwise:
             raise AssertionError(
                 f"encounter_screen at C={C} K={K} T={T} disagrees with "
-                f"its plain version: max |diff| {err}")
+                f"its plain version bitwise: max |diff| {err}")
         res["per_shape"][f"{C}x{K}x{T}"] = row
         res["max_abs_err"] = max(res["max_abs_err"], err)
     return res
@@ -693,6 +790,7 @@ def phase_screen_workflow() -> dict:
             "encounter_screen": encounter_screen}
     for mod in mods.values():
         mod.launches = 0
+    encounter_screen.launches_by_shape.clear()
     ops.reset_pipeline_stats()
     encounter_screen.reset_screen_stats()
     t0 = time.perf_counter()
@@ -700,6 +798,7 @@ def phase_screen_workflow() -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: mod.launches for name, mod in mods.items()}
+    by_shape = dict(sorted(encounter_screen.launches_by_shape.items()))
     stats = ops.get_pipeline_stats()
     sstats = encounter_screen.get_screen_stats()
     for r in reports:
@@ -719,6 +818,12 @@ def phase_screen_workflow() -> dict:
     if phases != ["organize", "archive", "store-build", "process",
                   "screen"]:
         raise AssertionError(f"phases ran: {phases}")
+    say("screen", "encounter_screen launches by padded shape (Kp, Tp): "
+                  + ", ".join(f"({k}, {t}): {n}"
+                              for (k, t), n in by_shape.items()))
+    if sum(by_shape.values()) != launches["encounter_screen"]:
+        raise AssertionError(f"launches_by_shape {by_shape} does not sum "
+                             f"to {launches['encounter_screen']}")
     if min(launches.values()) < 1:
         raise AssertionError(f"the workflow bypassed a kernel: {launches}")
     if stats["intermediate_transfers"] != 0:
@@ -817,14 +922,19 @@ def profile_screen_tasks(wf, tasks) -> None:
     split = {"store reads": cum.get(("segments.py", "read_observations"), 0),
              "segment pipeline": cum.get(("segments.py", "process_arrays"), 0),
              "cell screen": cum.get(("encounter_screen.py", "screen_cells"), 0)}
-    busy = sum(_device_busy(prof).values()) / 1e3
+    by_kernel = _device_busy(prof)
+    busy = sum(by_kernel.values()) / 1e3
+    screen_ms = sum(v for k, v in by_kernel.items() if "screen_" in k)
     say("screen", f"{len(tasks)} screen tasks one after another on the "
                   f"card, profiled: {wall:.3f}s wall "
                   f"({wall / len(tasks) * 1e3:.2f} ms a task); host split "
                   + ", ".join(f"{k} {v:.3f}s ({v / wall:.2f})"
                               for k, v in split.items())
                   + (f"; device busy {busy:.4f}s (idle share "
-                     f"{1 - busy / wall:.4f})" if busy > 0 else
+                     f"{1 - busy / wall:.4f}), of it the encounter_screen "
+                     f"kernels {screen_ms / 1e3:.4f}s "
+                     f"({screen_ms / len(tasks):.4f} ms a task)"
+                     if busy > 0 else
                      "; profiler saw no device time: idle share not "
                      "measured"))
 
@@ -1179,7 +1289,7 @@ def main() -> int:
                  f"{torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = phase_build()
+    card, screen_floor = phase_build()
 
     from repro_torch.geometry.dem import SyntheticGlobeDEM
     t0 = time.perf_counter()
@@ -1187,7 +1297,7 @@ def main() -> int:
     say("setup", f"GLOBE-resolution DEM generated in "
                  f"{time.perf_counter() - t0:.2f}s")
     results = phase_kernels(globe)
-    screen = phase_screen_kernels()
+    screen = phase_screen_kernels(screen_floor)
     launches, archive_dir = phase_workflow()
     phase_globe(archive_dir, globe)
     screen_launches = phase_screen_workflow()
@@ -1224,7 +1334,7 @@ def main() -> int:
                 for w, r in res["per_width"].items()},
             "launches_screen_workflow": screen_launches[name],
         })
-    C, K, T = SCREEN_SHAPES[-1]
+    C, K, T = SCREEN_TOP_SHAPE
     top = screen["per_shape"][f"{C}x{K}x{T}"]
     rows.append({
         "name": "encounter_screen", "route": "cuda",

@@ -48,8 +48,8 @@ SIGNATURES = {
     "track_interp_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "agl_lookup_f32": (_P, _P, _P, _P, _P, _LL, _I, _I, _F, _F, _P),
     "dynamic_rates_f32": (_P, _P, _P, _I, _I, _F, _P),
-    "encounter_screen_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                             _F, _F, _P),
+    "encounter_screen_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, _F, _F, _P),
     "flash_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                             _P),
     "flash_attention_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,

@@ -12,7 +12,10 @@ instant.
 
   * ``backend="kernel"`` (the default): :func:`encounter_screen`, which
     launches the CUDA kernel on CUDA tensors and runs the plain version
-    (:func:`_screen_batch_plain`, the chunked trace) on CPU tensors;
+    (:func:`_screen_batch_plain`, the chunked trace) on CPU tensors.
+    :func:`plan` decides how a launch splits its pairs and its time axis
+    from the shape and the card's SM count; each chunk of cells comes
+    back in one device-to-host copy;
   * ``backend="ref"``: the plain version on the given device, only ever
     the caller's explicit choice.
 
@@ -36,7 +39,8 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Dict, Iterable, List, Optional, Sequence, Set, Tuple
+from typing import (Dict, Iterable, List, NamedTuple, Optional, Sequence,
+                    Set, Tuple)
 
 import numpy as np
 import torch
@@ -51,6 +55,7 @@ __all__ = [
     "encounter_screen", "screen_aligned", "screen_cells",
     "screen_rows_grid", "brute_force_screen", "dedup_candidates",
     "get_screen_stats", "reset_screen_stats", "launches",
+    "launches_by_shape", "last_plan", "plan", "ScreenPlan",
 ]
 
 _BIG = np.float32(SCREEN_BIG)
@@ -61,6 +66,8 @@ SCREEN_BACKENDS = ("kernel", "ref")
 
 #: Kernel launches since the last reset (set to 0 to reset).
 launches = 0
+#: Kernel launches by padded (K, T) shape (clear to reset).
+launches_by_shape: Dict[Tuple[int, int], int] = {}
 _count_lock = threading.Lock()
 
 
@@ -121,16 +128,82 @@ def _screen_batch_plain(lat, lon, alt, val, *, h_m: float, v_m: float):
 # kernel wrapper
 # ---------------------------------------------------------------------------
 
-def encounter_screen(lat: torch.Tensor, lon: torch.Tensor,
-                     alt: torch.Tensor, val: torch.Tensor, *,
-                     h_m: float, v_m: float):
-    """lat/lon/alt/val (C,K,T) f32, K a multiple of 8 and T of 128 ->
-    (hit, min_dh, min_dv, t_idx), each (C,K,K) f32 (strict upper
-    triangle; no-hit entries hold 0, 1e30, 1e30, 0).  Launches the CUDA
-    kernel on CUDA tensors; on CPU tensors runs the plain version."""
-    global launches
-    if lat.device.type == "cpu":
-        return _screen_batch_plain(lat, lon, alt, val, h_m=h_m, v_m=v_m)
+class ScreenPlan(NamedTuple):
+    """How one launch splits its work (``csrc/encounter_screen.cu``).
+
+    ``regime`` is "small" (a cell's pairs packed 32 to a warp) or
+    "large" (one block per live 32 x 32 pair tile); ``strips`` is the
+    number of time strips each pair's walk is cut into, ``block_strips``
+    how many of those lie in different blocks (above 1 the blocks write
+    partials to a device workspace that a second kernel merges), and
+    ``warps_per_unit`` how many warps of one block share a unit (small
+    regime; 1 in the large one)."""
+
+    regime: str
+    strips: int
+    block_strips: int
+    warps_per_unit: int
+    blocks: int
+
+
+_CHUNK = 32                     # samples per strip chunk (the kernel's)
+_WARPS = 8                      # warps per block (the kernel's)
+_SMALL_MAX_K = 24               # largest K of the small regime
+_TILE = 32
+
+
+def plan(C: int, K: int, T: int, n_sm: int) -> ScreenPlan:
+    """The fixed rule by which :func:`encounter_screen` splits a (C, K,
+    T) launch over ``n_sm`` SMs: the small regime up to K = 24 rows, the
+    large one above (``kernels/screen_ab.py`` times both at K = 16, 24
+    and 32 on the card: the small one is faster at 16, the large one at
+    32; at 24 each wins at one of two cell counts).  Many cells need no time cut (strips = 1, no workspace)."""
+    return (_plan_small if K <= _SMALL_MAX_K else _plan_large)(C, K, T, n_sm)
+
+
+def _plan_small(C: int, K: int, T: int, n_sm: int) -> ScreenPlan:
+    """Pack each cell's K(K-1)/2 pairs 32 to a warp and cut time until
+    there are about 16 warps per SM, each walking at least one 32-sample
+    chunk: up to 8 strips in one block, the rest across blocks."""
+    units = C * -(-(K * (K - 1) // 2) // 32)
+    want = min(max(1, -(-16 * n_sm // units)), max(1, T // _CHUNK))
+    wpu = 1 << min(3, want.bit_length() - 1)
+    bs = want // wpu
+    blocks = -(-units // (_WARPS // wpu)) * bs
+    return ScreenPlan("small", wpu * bs, bs, wpu, blocks)
+
+
+def _plan_large(C: int, K: int, T: int, n_sm: int) -> ScreenPlan:
+    """Live 32 x 32 tiles only, time cut until there are about 8 blocks
+    per SM, each walking at least one 32-sample chunk."""
+    nt = -(-K // _TILE)
+    tiles = C * nt * (nt + 1) // 2
+    strips = min(max(1, -(-8 * n_sm // tiles)), max(1, T // _CHUNK))
+    return ScreenPlan("large", strips, strips, 1, tiles * strips)
+
+
+#: The split of the most recent kernel launch (None before the first).
+last_plan: Optional[ScreenPlan] = None
+
+_N_SM: Dict[int, int] = {}
+
+
+def _n_sm(device: torch.device) -> int:
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _N_SM:
+        _N_SM[idx] = torch.cuda.get_device_properties(idx) \
+            .multi_processor_count
+    return _N_SM[idx]
+
+
+def _launch(lat, lon, alt, val, *, h_m: float, v_m: float,
+            split: Optional[ScreenPlan] = None) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors -> one (4, C, K, K) buffer,
+    split as :func:`plan` says unless ``split`` is given (the timing
+    script ``kernels/screen_ab.py`` forces a regime so).  The split it
+    launched with is left in :data:`last_plan`."""
+    global launches, last_plan
     C, K, T = lat.shape
     _build.check_inputs(
         "encounter_screen",
@@ -141,17 +214,46 @@ def encounter_screen(lat: torch.Tensor, lon: torch.Tensor,
     if K % _ROW_BLOCK or T % _T_CHUNK:
         raise ValueError(f"encounter_screen: K={K} must be a multiple of "
                          f"{_ROW_BLOCK} and T={T} of {_T_CHUNK}")
-    outs = [torch.empty((C, K, K), dtype=torch.float32, device=lat.device)
-            for _ in range(4)]
-    with torch.cuda.device(lat.device):
+    p = split or plan(C, K, T, _n_sm(lat.device))
+    dev = lat.device
+    out = torch.empty((4, C, K, K), dtype=torch.float32, device=dev)
+    spans = torch.empty((2, C * K), dtype=torch.int32, device=dev)
+    part = (torch.empty((p.block_strips, 4, C, K, K), dtype=torch.float32,
+                        device=dev) if p.block_strips > 1 else None)
+    with torch.cuda.device(dev):
         rc = _build.lib().encounter_screen_f32(
             lat.data_ptr(), lon.data_ptr(), alt.data_ptr(), val.data_ptr(),
-            *(o.data_ptr() for o in outs), C, K, T, f32(h_m), f32(v_m),
-            _build.stream_of(lat))
+            out.data_ptr(), spans.data_ptr(),
+            None if part is None else part.data_ptr(), C, K, T,
+            0 if p.regime == "small" else 1, p.block_strips,
+            p.warps_per_unit, f32(h_m), f32(v_m), _build.stream_of(lat))
     _build.check(rc, "encounter_screen")
     with _count_lock:
         launches += 1
-    return tuple(outs)
+        launches_by_shape[(K, T)] = launches_by_shape.get((K, T), 0) + 1
+        last_plan = p
+    return out
+
+
+def _screen_stacked(lat, lon, alt, val, *, h_m: float, v_m: float,
+                    backend: str = "kernel") -> torch.Tensor:
+    """(C, K, T) planes -> one (4, C, K, K) tensor: the kernel on CUDA
+    tensors, the plain version on CPU tensors or for ``backend="ref"``."""
+    if backend == "kernel" and lat.device.type != "cpu":
+        return _launch(lat, lon, alt, val, h_m=h_m, v_m=v_m)
+    return torch.stack(_screen_batch_plain(lat, lon, alt, val, h_m=h_m,
+                                           v_m=v_m))
+
+
+def encounter_screen(lat: torch.Tensor, lon: torch.Tensor,
+                     alt: torch.Tensor, val: torch.Tensor, *,
+                     h_m: float, v_m: float):
+    """lat/lon/alt/val (C,K,T) f32, K a multiple of 8 and T of 128 ->
+    (hit, min_dh, min_dv, t_idx), each (C,K,K) f32 (strict upper
+    triangle; no-hit entries hold 0, 1e30, 1e30, 0).  Launches the CUDA
+    kernel on CUDA tensors (the four are views of its one output
+    buffer); on CPU tensors runs the plain version."""
+    return tuple(_screen_stacked(lat, lon, alt, val, h_m=h_m, v_m=v_m))
 
 
 # ---------------------------------------------------------------------------
@@ -214,8 +316,7 @@ def screen_aligned(lat, lon, alt, valid, *, h_thresh_m: float,
 
     planes = [pad(x) for x in (lat, lon, alt, valid)]
     c_max = max(1, _C_CHUNK_BYTES // (Kp * Kp * min(_T_CHUNK, Tp) * 4))
-    outs = [np.empty((C, Kp, Kp), np.float32) for _ in range(4)]
-    fn = encounter_screen if backend == "kernel" else _screen_batch_plain
+    out = np.empty((4, C, Kp, Kp), np.float32)
     done = 0
     while done < C:
         n = min(c_max, C - done)
@@ -225,12 +326,12 @@ def screen_aligned(lat, lon, alt, valid, *, h_thresh_m: float,
             chunk = np.zeros((Cp, Kp, Tp), np.float32)
             chunk[:n] = x[done:done + n]
             args.append(torch.from_numpy(chunk).to(dev))
-        res = fn(*args, h_m=h_thresh_m, v_m=v_thresh_m)
-        for dst, arr in zip(outs, res):
-            dst[done:done + n] = arr[:n].cpu().numpy()
+        res = _screen_stacked(*args, h_m=h_thresh_m, v_m=v_thresh_m,
+                              backend=backend)
+        out[:, done:done + n] = res[:, :n].cpu().numpy()
         _count(kernel_calls=1, padded_cells=Cp - n)
         done += n
-    hit, mdh, mdv, tix = (o[:, :K, :K] for o in outs)
+    hit, mdh, mdv, tix = out[:, :, :K, :K]
     return {"hit": hit, "min_dh": mdh, "min_dv": mdv, "t_idx": tix}
 
 

@@ -234,6 +234,139 @@ def test_encounter_screen_grid_past_65535_blocks(dev):
     _check_screen(got, want)
 
 
+def _screen_bitwise(dev, planes, h_m=926.0, v_m=152.4):
+    """Launch on the card; hold the result bitwise to the plain version
+    on the same tensors and, cell by cell, to the oracle.  Returns the
+    plain result and the plan the launch took."""
+    args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+            for x in planes]
+    C, K, T = args[0].shape
+    before = screen_mod.launches
+    shape_before = screen_mod.launches_by_shape.get((K, T), 0)
+    got = screen_mod.encounter_screen(*args, h_m=h_m, v_m=v_m)
+    torch.cuda.synchronize()
+    assert screen_mod.launches == before + 1
+    assert screen_mod.launches_by_shape[(K, T)] == shape_before + 1
+    want = screen_mod._screen_batch_plain(*args, h_m=h_m, v_m=v_m)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    _check_screen(got, want)
+    for c in range(min(C, 4)):
+        oracle = ref.encounter_screen_ref(*(a[c] for a in args),
+                                          h_thresh_m=h_m, v_thresh_m=v_m)
+        _check_screen(tuple(g[c] for g in got), oracle)
+    return want, screen_mod.last_plan
+
+
+@pytest.mark.parametrize("T", [128, 1024, 4608])
+def test_encounter_screen_workflow_launch_shape(dev, T):
+    # The screen phase's own launch: one cell of at most 4 rows, padded
+    # to K = 8.
+    want, plan = _screen_bitwise(dev, _cells(1, 8, T, seed=T, n_valid=4))
+    assert plan.regime == "small"
+    assert want[0].sum().item() > 0
+
+
+@pytest.mark.parametrize("K", [16, 32, 40, 240])
+def test_encounter_screen_regime_boundary(dev, K):
+    want, plan = _screen_bitwise(dev, _cells(3, K, 512, seed=K))
+    assert plan.regime == ("small" if K <= 24 else "large")
+    assert want[0].sum().item() > 0
+
+
+def test_encounter_screen_workspace_path(dev):
+    # Large K with few cells: several strips in several blocks, merged
+    # from the device workspace.
+    want, plan = _screen_bitwise(dev, _cells(2, 240, 2048, seed=5))
+    assert plan.regime == "large" and plan.block_strips > 1
+    assert want[0].sum().item() > 0
+
+
+def _screen_case(case, K):
+    rng = np.random.default_rng(K + len(case))
+    C, T = 2, 1024
+    if case == "ties":
+        # Stationary rows: every jointly valid sample ties for the
+        # minimum, so t_idx is the first one; rows 0 and 1 coincide
+        # (dh = 0 takes sqrtf's slow path).
+        pos = [40.0 + rng.normal(0, 0.002, (C, K, 1)),
+               -100.0 + rng.normal(0, 0.002, (C, K, 1)),
+               rng.uniform(500, 560, (C, K, 1))]
+        for x in pos:
+            x[:, 1] = x[:, 0]
+        lat, lon, alt = (np.broadcast_to(x, (C, K, T)).astype(np.float32)
+                         for x in pos)
+        s = rng.integers(0, T // 2, (C, K, 1))
+        e = rng.integers(T // 2, T, (C, K, 1))
+        t = np.arange(T)[None, None, :]
+        return lat, lon, alt, ((t >= s) & (t < e)).astype(np.float32)
+    lat, lon, alt, val = _cells(C, K, T, seed=K)
+    if case == "holes":
+        val[rng.random(val.shape) < 0.3] = 0.0
+    elif case == "empty":
+        val[:] = 0.0
+        for k in range(K):          # no two rows ever jointly valid
+            span = T // K
+            val[:, k, k * span:(k + 1) * span] = 1.0
+    elif case == "quadrants":
+        # Latitudes over the globe: the cosine's argument crosses pi/4
+        # (both polynomials, both signs); wide thresholds hit every pair.
+        lat[:] = rng.uniform(-89.0, 89.0, lat.shape).astype(np.float32)
+    elif case.startswith("lat"):
+        # Latitudes swept over a full turn around a base beyond the
+        # globe: the cosine's argument lies in (pi/2, 105615) rad, so the
+        # inlined cosf reduces it by several multiples j of pi/2 and
+        # takes every quadrant.  A cell's rows share each sample's
+        # latitude (dn = 0) and lie 1e-9 to 1 degree off the prime
+        # meridian, so dh is |de|.  No latitude lies within 10 degrees of
+        # a zero of the cosine, so min_dh falls on any quadrant.
+        u = float(case[3:]) + rng.uniform(-180.0, 180.0, (C, 1, T))
+        m = np.mod(u - 90.0, 180.0)
+        u = np.where((m < 10.0) | (m > 170.0), u + 20.0, u)
+        lat = np.broadcast_to(u, (C, K, T)).astype(np.float32)
+        off = (10.0 ** rng.uniform(-9.0, 0.0, (C, K, T))
+               * rng.choice([-1.0, 1.0], (C, K, T)))
+        lon = off.astype(np.float32)
+    elif case == "far":
+        # A latitude far outside the globe takes cosf's slow reduction
+        # (|argument| >= 105615 rad); the thresholds let its pairs hit.
+        lat[:, 0] = 3e7
+    return lat, lon, alt, val
+
+
+@pytest.mark.parametrize("K", [8, 240])
+@pytest.mark.parametrize("case", ["ties", "holes", "empty", "quadrants",
+                                  "far", "lat150", "lat400", "lat5000",
+                                  "lat-3000"])
+def test_encounter_screen_cases(dev, case, K):
+    thresholds = {"quadrants": (1e8, 1e5), "far": (1e14, 1e5)}
+    planes = _screen_case(case, K)
+    want, _ = _screen_bitwise(
+        dev, planes, *thresholds.get(case, (1e14, 1e5) if case
+                                     .startswith("lat") else ()))
+    hit = want[0] > 0.5
+    if case == "empty":
+        assert not hit.any()
+        return
+    assert hit.any()
+    if case == "ties":
+        val = torch.from_numpy(planes[3])
+        t = torch.arange(val.shape[-1])
+        first = torch.where(val != 0, t, 10**6).amin(-1)
+        joint = torch.maximum(first[:, :, None], first[:, None, :])
+        assert torch.equal(want[3][hit].cpu(), joint[hit.cpu()].float())
+        assert (want[1][:, 0, 1] == 0).any()     # the coincident rows
+    if case.startswith("lat"):
+        # The samples that decide min_dh cover all four quadrants q of
+        # cosf's reduction (q = j + 1 mod 4), several j among them.
+        c, i, _ = np.nonzero(hit.cpu().numpy())
+        t = want[3][hit].cpu().numpy().astype(np.int64)
+        x = planes[0][c, i, t] * np.float32(np.pi / 180)
+        j = np.rint(x * np.float32(2 / np.pi)).astype(np.int64)
+        assert set(((j + 1) % 4).tolist()) == {0, 1, 2, 3}
+        assert len(set(j.tolist())) >= 4
+
+
 def test_screen_workflow_processes_spawns_workers_onto_card(dev, tmp_path):
     # The screen plan runs the segment pipeline on the card in the
     # parent, so the screen phase's workers are spawned, and each opens

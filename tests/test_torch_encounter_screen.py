@@ -202,3 +202,156 @@ def test_gridhash_matches_jax(seed, cell_deg):
     assert tgrid.bin_samples(rows, spec=tspec, h_pad_m=5000.0,
                              v_pad_m=300.0) == \
         jgrid.bin_samples(rows, spec=jspec, h_pad_m=5000.0, v_pad_m=300.0)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's decomposition: plan rule and time-strip emulation
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("T", [128, 1024, 4608])
+def test_plan_packs_the_workflow_launch_into_the_small_regime(T):
+    p = tscreen.plan(1, 8, T, 132)
+    assert p.regime == "small"
+    assert p.strips == p.block_strips * p.warps_per_unit
+    assert p.warps_per_unit in (1, 2, 4, 8)
+
+
+def test_plan_needs_no_strips_for_many_cells():
+    p = tscreen.plan(66_000, 8, 128, 132)
+    assert p.regime == "small" and p.strips == 1 and p.block_strips == 1
+
+
+@pytest.mark.parametrize("n_sm", [132, 114])
+def test_plan_fills_the_card_at_large_k(n_sm):
+    p = tscreen.plan(4, 240, 4608, n_sm)
+    assert p.regime == "large" and p.warps_per_unit == 1
+    assert p.blocks >= 2 * n_sm
+    assert p.blocks == 4 * 36 * p.strips        # live tiles only (8 x 8 -> 36)
+
+
+@pytest.mark.parametrize("K", [8, 16, 24, 32, 40, 64, 240])
+@pytest.mark.parametrize("C,T", [(1, 128), (1, 4608), (4, 1024), (300, 256)])
+def test_plan_strips_never_exceed_t_over_32(C, K, T):
+    p = tscreen.plan(C, K, T, 132)
+    assert 1 <= p.strips <= T // 32
+    assert p.regime == ("small" if K <= 24 else "large")
+
+
+def _lexicographic_merge(parts):
+    """Fold strip partials (hit, min_dh, min_dv, t_idx) as the kernel
+    does: OR, min, and the lexicographic minimum of (min_dh, t_idx)."""
+    hit, mdh, mdv, tix = parts[0]
+    for h2, d2, v2, t2 in parts[1:]:
+        take = (d2 < mdh) | ((d2 == mdh) & (t2 < tix))
+        hit = torch.maximum(hit, h2)
+        mdh = torch.where(take, d2, mdh)
+        tix = torch.where(take, t2, tix)
+        mdv = torch.minimum(mdv, v2)
+    return hit, mdh, mdv, tix
+
+
+def _emulate_kernel(lat, lon, alt, val, strips, *, reverse=False):
+    """The kernel's decomposition in plain PyTorch: every pair walks only
+    its joint window [max(first_i, first_j), min(last_i, last_j)] (first
+    and last nonzero val), cut into ``strips`` interleaved strips of
+    32-sample chunks; the plain version runs on each (pair, strip) and
+    the strips fold lexicographically."""
+    C, K, T = lat.shape
+    t = torch.arange(T)
+    nz = val != 0
+    first = torch.where(nz, t, T).amin(-1)
+    last = torch.where(nz, t, -1).amax(-1)
+    ii, jj = torch.triu_indices(K, K, 1)
+    P = ii.numel()
+    lo = torch.maximum(first[:, ii], first[:, jj])[..., None]
+    hi = torch.minimum(last[:, ii], last[:, jj])[..., None]
+    window = ((t >= lo) & (t <= hi)).reshape(C * P, 1, T)
+
+    def pairs(x):
+        return torch.stack([x[:, ii], x[:, jj]], dim=2).reshape(C * P, 2, T)
+
+    parts = []
+    for s in range(strips):
+        in_strip = ((t // 32) % strips == s)[None, None, :]
+        res = tscreen._screen_batch_plain(
+            pairs(lat), pairs(lon), pairs(alt),
+            pairs(val) * (window & in_strip), h_m=H, v_m=V)
+        parts.append([r[:, 0, 1].reshape(C, P) for r in res])
+    if reverse:
+        parts.reverse()
+    merged = _lexicographic_merge(parts)
+    out = [torch.zeros((C, K, K)), torch.full((C, K, K), 1e30),
+           torch.full((C, K, K), 1e30), torch.zeros((C, K, K))]
+    for o, m in zip(out, merged):
+        o[:, ii, jj] = m
+    return tuple(out)
+
+
+def _kernel_cases(case):
+    """Seeded (C, K, T) planes for the decomposition tests."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    if case == "random":
+        return _batch(3, 8, 384, seed=21)
+    if case == "ties":
+        # Stationary rows: each pair's dh is the same at every jointly
+        # valid sample, so the minimum ties across strips and t_idx must
+        # be the pair's first jointly valid sample.
+        C, K, T = 2, 8, 512
+        lat = np.broadcast_to(40.0 + rng.normal(0, 0.002, (C, K, 1)),
+                              (C, K, T)).astype(np.float32).copy()
+        lon = np.broadcast_to(-100.0 + rng.normal(0, 0.002, (C, K, 1)),
+                              (C, K, T)).astype(np.float32).copy()
+        alt = np.broadcast_to(rng.uniform(500, 560, (C, K, 1)),
+                              (C, K, T)).astype(np.float32).copy()
+        s = rng.integers(0, T // 2, (C, K, 1))
+        e = rng.integers(T // 2, T, (C, K, 1))
+        val = ((np.arange(T) >= s) & (np.arange(T) < e)).astype(np.float32)
+        return lat, lon, alt, val
+    if case == "holes":
+        lat, lon, alt, val = _batch(2, 16, 384, seed=22, spread=0.004)
+        val[rng.random(val.shape) < 0.3] = 0.0   # holes inside the spans
+        return lat, lon, alt, val
+    if case == "empty":
+        # Row k is valid only on its own slot of the grid: no two rows
+        # are ever jointly valid, in any cell.
+        lat, lon, alt, _ = _batch(2, 8, 256, seed=23, spread=0.0)
+        val = np.zeros_like(lat)
+        for k in range(8):
+            val[:, k, k * 32:(k + 1) * 32] = 1.0
+        return lat, lon, alt, val
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("strips", [1, 2, 3, 8])
+@pytest.mark.parametrize("case", ["random", "ties", "holes", "empty"])
+def test_strip_decomposition_is_bitwise_the_plain_version(case, strips):
+    planes = _kernel_cases(case)
+    args = [torch.from_numpy(np.ascontiguousarray(x)) for x in planes]
+    want = tscreen._screen_batch_plain(*args, h_m=H, v_m=V)
+    for reverse in (False, True):           # the merge is order free
+        got = _emulate_kernel(*args, strips, reverse=reverse)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    hit = want[0] > 0.5
+    if case == "empty":
+        assert not hit.any()
+    else:
+        assert hit.any()
+    if case == "ties":
+        t = torch.arange(args[3].shape[-1])
+        first = torch.where(args[3] != 0, t, 10**6).amin(-1)
+        joint = torch.maximum(first[:, :, None], first[:, None, :])
+        assert torch.equal(want[3][hit], joint[hit].float())
+    jax_res = jscreen.screen_aligned(*planes, h_thresh_m=H, v_thresh_m=V,
+                                     backend="jit")
+    _assert_screen_close({k: v.numpy() for k, v in zip(
+        ("hit", "min_dh", "min_dv", "t_idx"), got)}, jax_res)
+
+
+def test_kernel_wrapper_counts_launch_shapes_only_on_the_card():
+    tscreen.launches_by_shape.clear()
+    before = tscreen.launches
+    args = [torch.from_numpy(x) for x in _batch(1, 8, 128, seed=4)]
+    got = tscreen.encounter_screen(*args, h_m=H, v_m=V)
+    assert len(got) == 4 and all(g.shape == (1, 8, 8) for g in got)
+    assert tscreen.launches == before and tscreen.launches_by_shape == {}
