@@ -8,10 +8,11 @@ and the CUDA toolkit:
 
 Phases, each printed as it runs:
 
-1. build   — compile ``src/repro_torch/kernels/csrc/*.cu`` (six
-             sources for the five kernels, flash attention having a
-             CUDA-core and a tensor-core source; one nvcc each, all
-             started together) for sm_90a; print the build time,
+1. build   — compile ``src/repro_torch/kernels/csrc/*.cu`` (seven
+             sources: the five kernels, flash attention having a
+             CUDA-core and a tensor-core source, and an empty kernel
+             that times the launch floor; one nvcc each, all started
+             together) for sm_90a; print the build time,
              ptxas' registers and shared memory per kernel, the count of
              HGMMA (wgmma) instructions in the tensor-core flash
              kernel's SASS (``cuobjdump -sass``; 0 fails), the SASS
@@ -20,7 +21,11 @@ Phases, each printed as it runs:
              card's name and power limit.
 2. kernels — hold each CUDA kernel against its plain PyTorch version on
              the card at the process phase's shapes (B = 1024 rows,
-             N = 128 knots, M in {128, 256, 512, 1024}; the AGL gather
+             N = 128 knots, M in {128, 256, 512, 1024}; track_interp and
+             dynamic_rates bitwise, headings included, with the split
+             ``plan`` chose, the earlier design's time and the launch
+             floor: an empty kernel on the same grid; dynamic_rates also
+             at a dt that is not a power of two; the AGL gather
              on the 30-arc-second GLOBE-resolution DEM, 3121 x 7081 f32)
              and the encounter screen at (C, K, T) cell batches up to
              K = 240 rows and T = 4608 samples and at the screen
@@ -32,7 +37,8 @@ Phases, each printed as it runs:
 3. workflow— the port's TrackWorkflow end to end on the card (threads,
              8 workers, 4 tasks per message, 8 raw files at scale 500),
              with every kernel's launch counter zeroed just before and
-             read just after.
+             read just after, and track_interp's and dynamic_rates'
+             launches by shape and track_interp's by route.
 4. globe   — one process_batch over every archive the workflow wrote,
              on the GLOBE-resolution DEM, on the card and on the CPU
              (plain versions), compared within 1e-4 (both sides run the
@@ -46,8 +52,12 @@ Phases, each printed as it runs:
              same store-derived rows and against the screen tasks re-run
              on the CPU, and the store path's process phase held
              against the zip path's, bitwise; the screen launches by
-             padded (K, T) shape; 200 screen tasks profiled (host split,
-             device busy time, the screen kernels' own device time).
+             padded (K, T) shape, track_interp's and dynamic_rates' by
+             shape; 200 screen tasks profiled (host split, device busy
+             time, the screen kernels' own device time); then
+             track_interp and dynamic_rates at the most frequent launch
+             shape of phase 3 and of phase 5, bitwise, timed beside
+             their plain versions, bounds and launch floors.
 6. flash   — the flash-attention kernels against their plain version at
              the six shapes of tests/test_flash_attention.py in f32
              (rtol/atol 2e-5), its bf16 case, stablelm-12b's heads (B =
@@ -103,6 +113,15 @@ TIMED_RUNS = 30
 # tests/test_segment_pipeline.py); headings compare as wrapped angles.
 TOL = {"track_interp": (1e-5, 1e-4), "agl_lookup": (1e-4, 1e-2),
        "dynamic_rates": (1e-4, 1e-3), "encounter_screen": (1e-5, 1e-2)}
+# The earlier track_interp and dynamic_rates kernels' times (one block per
+# row and 256-query tile, one query a thread) at B = 1024, N = 128 and
+# each width, on an H100 80GB HBM3 at 700 W, as PERF.md records them,
+# printed beside this run's.
+INTERP_EARLIER_MS = {128: 0.0080, 256: 0.0095, 512: 0.0128, 1024: 0.0193}
+RATES_EARLIER_MS = {128: 0.0082, 256: 0.0097, 512: 0.0133, 1024: 0.0201}
+# A grid spacing that is not a power of two: dynamic_rates then takes its
+# IEEE divisions (a power of two divides by exact reciprocals).
+RATES_IEEE_DT = 0.3
 # Encounter-screen cell batches (C cells, K rows, T samples): many small
 # cells, mid-size, the densest cell the aerodrome_dense manifest gives
 # (237 rows, 240 padded), and that at an hour-long union grid; then the
@@ -211,23 +230,24 @@ def wrapped(a, b):
     return d.abs()
 
 
-def bucket_inputs(rng, W: int):
-    """One (B_ROWS, W) bucket shaped like the process phase's: 10-120
-    irregular knots about 10 s apart (dataset #1's update period),
-    covering half to all of the bucket's 1 Hz grid, over CONUS."""
+def bucket_inputs(rng, W: int, B: int = B_ROWS, N: int = N_KNOTS):
+    """One (B, W) bucket shaped like the process phase's: 10-120
+    irregular knots about 10 s apart (dataset #1's update period; N >=
+    128 slots), covering half to all of the bucket's 1 Hz grid, over
+    CONUS."""
     import numpy as np
-    t_in = np.zeros((B_ROWS, N_KNOTS), np.float32)
-    v_in = np.zeros((B_ROWS, 3, N_KNOTS), np.float32)
-    count_in = np.zeros(B_ROWS, np.int32)
-    t_out = np.zeros((B_ROWS, W), np.float32)
-    count_out = np.zeros(B_ROWS, np.int32)
-    for b in range(B_ROWS):
+    t_in = np.zeros((B, N), np.float32)
+    v_in = np.zeros((B, 3, N), np.float32)
+    count_in = np.zeros(B, np.int32)
+    t_out = np.zeros((B, W), np.float32)
+    count_out = np.zeros(B, np.int32)
+    for b in range(B):
         m = int(rng.integers(W // 2 + 1, W + 1))
         n = int(min(max(m // 10, 10), 120))
         t = np.sort(rng.uniform(0, m - 1, n))
         t[0], t[-1] = 0.0, m - 1
         t_in[b, :n] = t
-        t_in[b, n:] = t[-1] + np.arange(1, N_KNOTS - n + 1)
+        t_in[b, n:] = t[-1] + np.arange(1, N - n + 1)
         hdg = rng.uniform(0, 2 * np.pi) + np.cumsum(rng.normal(0, 0.05, n))
         step = rng.uniform(30, 220) * np.diff(t, prepend=0.0) / 111_111.0
         lat0 = rng.uniform(26, 48)
@@ -268,8 +288,8 @@ def phase_build() -> tuple[str, dict]:
     for source, name, text in found:
         say("build", f"{source} {names.get(name, name)}: ptxas{text}")
     n = len(_build._sources())
-    if n != 6 or "flash_attention_sm90.cu" not in log:
-        raise AssertionError(f"expected six kernel sources, built {n}")
+    if n != 7 or "flash_attention_sm90.cu" not in log:
+        raise AssertionError(f"expected seven kernel sources, built {n}")
     hgmma = hgmma_count(_build.library_path())
     say("build", f"flash_attention_sm90.cu: {hgmma} HGMMA instructions in "
                  f"its kernels' SASS (cuobjdump -sass)")
@@ -368,8 +388,6 @@ def phase_kernels(globe_dem) -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.agl_lookup import agl_lookup
-    from repro_torch.kernels.dynamic_rates import dynamic_rates
-    from repro_torch.kernels.track_interp import track_interp
 
     dev = torch.device("cuda")
     dem = torch.from_numpy(
@@ -385,26 +403,10 @@ def phase_kernels(globe_dem) -> dict:
     for W in WIDTHS:
         t_in, v_in, count_in, t_out, count_out = (
             torch.from_numpy(x).to(dev) for x in bucket_inputs(rng, W))
-        B, C, N = v_in.shape
+        B = v_in.shape[0]
 
         # track_interp
-        got = track_interp(t_in, v_in, count_in, t_out)
-        want = ref.track_interp_ref(t_in, v_in, count_in, t_out)
-        err_i = (got - want).abs().max().item()
-        ok_i = torch.allclose(got, want, rtol=TOL["track_interp"][0],
-                              atol=TOL["track_interp"][1])
-        # The kernel reads only each row's first `count` knots (times and
-        # C value planes), every query time and count, and writes (B,M,C).
-        knots = int(count_in.sum().item())
-        nbytes = (knots * (1 + C) + B + B * W + B * W * C) * 4
-        b_ms, b_by = bound(nbytes, B * W * (6 + 3 * C))
-        interp_row = {
-            "ms": device_ms(lambda: track_interp(t_in, v_in, count_in,
-                                                 t_out)),
-            "plain_ms": device_ms(lambda: ref.track_interp_ref(
-                t_in, v_in, count_in, t_out)),
-            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-            "max_abs_err": err_i}
+        got, interp_row = interp_check(t_in, v_in, count_in, t_out)
 
         # agl_lookup on the interpolated grid, indices as the pipeline
         # computes them
@@ -444,43 +446,184 @@ def phase_kernels(globe_dem) -> dict:
             "dem_cells_touched": n_cells, "library_max_abs_err": lib_err}
 
         # dynamic_rates on the same grid
-        got_r = dynamic_rates(v_grid, count_out, 1.0)
-        want_r = ref.dynamic_rates_ref(v_grid, count_out, 1.0)
-        diff = (got_r - want_r).abs()
-        diff[:, 2] = wrapped(got_r[:, 2], want_r[:, 2]).float()
-        err_r = diff.max().item()
-        rtol, atol = TOL["dynamic_rates"]
-        ok_r = bool((diff <= atol + rtol * want_r.abs()).all())
-        # Positions at and past count_out read nothing and write zeros.
-        valid = int(count_out.sum().item())
-        b_ms, b_by = bound((valid * 3 + B + B * 4 * W) * 4, valid * 60)
-        rates_row = {
-            "ms": device_ms(lambda: dynamic_rates(v_grid, count_out, 1.0)),
-            "plain_ms": device_ms(lambda: ref.dynamic_rates_ref(
-                v_grid, count_out, 1.0)),
-            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-            "max_abs_err": err_r}
+        rates_row = rates_check(v_grid, count_out, 1.0)
 
-        for name, row, ok in (("track_interp", interp_row, ok_i),
-                              ("agl_lookup", agl_row, ok_a),
-                              ("dynamic_rates", rates_row, ok_r)):
-            rtol, atol = TOL[name]
-            lib = ("-" if row["library_ms"] is None
-                   else f"{row['library_ms']:.4f}")
-            say("kernels", f"{name:13s} B={B} M={W:4d}: max|diff| "
-                           f"{row['max_abs_err']:.3g} (rtol {rtol}, atol "
-                           f"{atol}) kernel {row['ms']:.4f} ms, plain "
-                           f"{row['plain_ms']:.4f} ms, library {lib} ms, "
-                           f"bound {row['bound_ms']:.4f} ms "
-                           f"({row['bound_by']})")
-            if not ok:
+        for name, row, earlier in (
+                ("track_interp", interp_row, INTERP_EARLIER_MS[W]),
+                ("agl_lookup", agl_row, None),
+                ("dynamic_rates", rates_row, RATES_EARLIER_MS[W])):
+            say_kernel(name, f"B={B} M={W:4d}", row, earlier)
+            if name == "agl_lookup" and not ok_a:
                 raise AssertionError(
                     f"{name} at M={W} disagrees with its plain version: "
                     f"max |diff| {row['max_abs_err']}")
             results[name]["per_width"][W] = row
             results[name]["max_abs_err"] = max(
                 results[name]["max_abs_err"], row["max_abs_err"])
+        if W == WIDTHS[-1]:
+            # A dt that is not a power of two takes the IEEE divisions.
+            row = rates_check(v_grid, count_out, RATES_IEEE_DT)
+            say_kernel("dynamic_rates", f"B={B} M={W:4d} dt={RATES_IEEE_DT} "
+                                        f"(IEEE divisions)", row)
+            results["dynamic_rates"]["ieee_dt"] = row
     return results
+
+
+def launch_floor_ms(blocks: int, threads: int, smem: int, like) -> float:
+    """device_ms of a kernel that does nothing, on the given grid: the
+    part of a launch's time that no kernel design can remove."""
+    from repro_torch.kernels import _build
+    lib, stream = _build.lib(), _build.stream_of(like)
+
+    def run():
+        _build.check(lib.launch_floor(blocks, threads, smem, stream),
+                     "launch_floor")
+    return device_ms(run)
+
+
+def interp_check(t_in, v_in, count_in, t_out) -> tuple:
+    """track_interp against its plain version, bitwise and within TOL,
+    timed beside it, its bound and the launch floor of its grid; returns
+    the output and the row."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import track_interp as ti
+    got = ti.track_interp(t_in, v_in, count_in, t_out)
+    want = ref.track_interp_ref(t_in, v_in, count_in, t_out)
+    torch.cuda.synchronize()
+    split = ti.last_plan
+    rtol, atol = TOL["track_interp"]
+    err = (got - want).abs().max().item()
+    ok = torch.allclose(got, want, rtol=rtol, atol=atol)
+    bitwise = torch.equal(got, want)
+    # The kernel reads only each row's first `count` knots (times and C
+    # value planes), every query time and count, and writes (B,M,C).
+    B, C, _ = v_in.shape
+    M = t_out.shape[1]
+    knots = int(count_in.sum().item())
+    nbytes = (knots * (1 + C) + B + B * M + B * M * C) * 4
+    b_ms, b_by = bound(nbytes, B * M * (6 + 3 * C))
+    row = {"ms": device_ms(lambda: ti.track_interp(t_in, v_in, count_in,
+                                                   t_out)),
+           "plain_ms": device_ms(lambda: ref.track_interp_ref(
+               t_in, v_in, count_in, t_out)),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+           "max_abs_err": err, "bitwise": bitwise,
+           "floor_ms": launch_floor_ms(split.blocks,
+                                       split.rows * split.per_row,
+                                       split.smem, t_in),
+           "plan": split._asdict()}
+    if not ok or not bitwise:
+        raise AssertionError(f"track_interp at B={B} M={M} disagrees with "
+                             f"its plain version: max |diff| {err}, "
+                             f"bitwise {bitwise}")
+    return got, row
+
+
+def rates_check(v, count, dt: float) -> dict:
+    """dynamic_rates against its plain version, bitwise (headings
+    included) and within TOL (headings as wrapped angles), timed beside
+    it, its bound and the launch floor of its grid."""
+    import torch
+    from repro_torch.kernels import dynamic_rates as dr
+    from repro_torch.kernels import ref
+    got = dr.dynamic_rates(v, count, dt)
+    want = ref.dynamic_rates_ref(v, count, dt)
+    torch.cuda.synchronize()
+    split = dr.last_plan
+    diff = (got - want).abs()
+    diff[:, 2] = wrapped(got[:, 2], want[:, 2]).float()
+    err = diff.max().item()
+    rtol, atol = TOL["dynamic_rates"]
+    ok = bool((diff <= atol + rtol * want.abs()).all())
+    bitwise = torch.equal(got, want)
+    # Positions at and past count read nothing and write zeros.
+    B, _, M = v.shape
+    valid = int(count.clamp(max=M).sum().item())
+    b_ms, b_by = bound((valid * 3 + B + B * 4 * M) * 4, valid * 60)
+    row = {"ms": device_ms(lambda: dr.dynamic_rates(v, count, dt)),
+           "plain_ms": device_ms(lambda: ref.dynamic_rates_ref(
+               v, count, dt)),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+           "max_abs_err": err, "bitwise": bitwise,
+           "floor_ms": launch_floor_ms(split.blocks,
+                                       split.rows * split.per_row, 0, v),
+           "plan": split._asdict()}
+    if not ok or not bitwise:
+        raise AssertionError(f"dynamic_rates at B={B} M={M} dt={dt} "
+                             f"disagrees with its plain version: max "
+                             f"|diff| {err}, bitwise {bitwise}")
+    return row
+
+
+def say_kernel(name: str, shape: str, row: dict,
+               earlier_ms: float | None = None) -> None:
+    """One [kernels] line: agreement, kernel, plain, library and bound
+    times, and for the redesigned kernels the launch floor and the split
+    ``plan`` chose, and ``earlier_ms`` (the earlier design's time as
+    PERF.md records it, printed here only) where given."""
+    rtol, atol = TOL[name]
+    lib = "-" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
+    extra = ""
+    if "floor_ms" in row:
+        p = row["plan"]
+        extra = (f"; launch floor {row['floor_ms']:.4f} ms; "
+                 + (f"route {p['route']}, " if "route" in p else "")
+                 + f"{p['rows']} rows x {p['per_row']} threads a block, "
+                   f"{p['blocks']} blocks, "
+                 + (f"{p['smem']} B shared, " if "smem" in p else "")
+                 + ("16-byte" if p["vec"] else "scalar") + " path")
+    if earlier_ms:
+        extra += (f"; earlier design {earlier_ms:.4f} ms "
+                  f"(now x{row['ms'] / earlier_ms:.3f})")
+    say("kernels", f"{name:13s} {shape}: max|diff| "
+                   f"{row['max_abs_err']:.3g} (rtol {rtol}, atol {atol})"
+                   + (f", bitwise {row['bitwise']}" if "bitwise" in row
+                      else "")
+                   + f"; kernel {row['ms']:.4f} ms, plain "
+                   f"{row['plain_ms']:.4f} ms, library {lib} ms, bound "
+                   f"{row['bound_ms']:.4g} ms ({row['bound_by']})" + extra)
+
+
+def top_shape(by_shape: dict):
+    """The most frequent launch shape (the larger shape on a tie)."""
+    return max(by_shape.items(), key=lambda kv: (kv[1], kv[0]))[0]
+
+
+def phase_workflow_shapes(shapes: dict) -> dict:
+    """track_interp and dynamic_rates at each workflow's most frequent
+    launch shape (``shapes``: workflow -> kernel -> launches_by_shape),
+    bitwise against their plain versions and timed beside them, their
+    bounds and the launch floor of their grids."""
+    import numpy as np
+    import torch
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(13)
+    out = {}
+    for label, by_kernel in shapes.items():
+        B, N, M = top_shape(by_kernel["track_interp"])
+        t_in, v_in, count_in, t_out, _ = (
+            torch.from_numpy(x).to(dev)
+            for x in bucket_inputs(rng, M, B=B, N=N))
+        _, i_row = interp_check(t_in, v_in, count_in, t_out)
+        Br, Mr = top_shape(by_kernel["dynamic_rates"])
+        Nr = max((n for b, n, m in by_kernel["track_interp"]
+                  if (b, m) == (Br, Mr)), default=N_KNOTS)
+        t_in, v_in, count_in, t_out, count_out = (
+            torch.from_numpy(x).to(dev)
+            for x in bucket_inputs(rng, Mr, B=Br, N=Nr))
+        grid, _ = interp_check(t_in, v_in, count_in, t_out)
+        v_grid = grid.permute(0, 2, 1).contiguous()
+        r_row = rates_check(v_grid, count_out, 1.0)
+        say_kernel("track_interp", f"{label}'s top shape B={B} N={N} M={M} "
+                   f"({by_kernel['track_interp'][(B, N, M)]} launches)",
+                   i_row)
+        say_kernel("dynamic_rates", f"{label}'s top shape B={Br} M={Mr} "
+                   f"({by_kernel['dynamic_rates'][(Br, Mr)]} launches)",
+                   r_row)
+        out[label] = {"track_interp": dict(i_row, shape=[B, N, M]),
+                      "dynamic_rates": dict(r_row, shape=[Br, Mr])}
+    return out
 
 
 def screen_cells(rng, C: int, K: int, T: int):
@@ -591,7 +734,47 @@ def phase_screen_kernels(floor: dict) -> dict:
     return res
 
 
-def phase_workflow() -> tuple[dict, str]:
+# Kernels whose wrappers count launches by shape.
+SHAPED = {"track_interp": "(B, N, M)", "dynamic_rates": "(B, M)"}
+SHAPES_PRINTED = 12
+
+
+def snapshot_shapes(mods: dict) -> dict:
+    """The SHAPED kernels' launches by shape, most frequent first, and
+    track_interp's launches by route, read just after a run."""
+    shapes = {name: dict(sorted(mods[name].launches_by_shape.items(),
+                                key=lambda kv: (-kv[1], kv[0])))
+              for name in SHAPED}
+    shapes["routes"] = dict(mods["track_interp"].launches_by_route)
+    return shapes
+
+
+def say_shapes(tag: str, shapes: dict, launches: dict) -> None:
+    """Print a snapshot_shapes; each kernel's shapes must sum to its
+    launches."""
+    for name, key in SHAPED.items():
+        by = shapes[name]
+        more = len(by) - SHAPES_PRINTED
+        say(tag, f"{name} launches by shape {key}: " + ", ".join(
+            f"{k}: {n}" for k, n in list(by.items())[:SHAPES_PRINTED])
+            + (f", and {more} more shapes" if more > 0 else ""))
+        if sum(by.values()) != launches[name]:
+            raise AssertionError(f"{name} launches_by_shape sums to "
+                                 f"{sum(by.values())}, not "
+                                 f"{launches[name]}")
+    say(tag, f"track_interp launches by route {shapes['routes']}")
+
+
+def zero_counters(mods: dict) -> None:
+    for mod in mods.values():
+        mod.launches = 0
+    for name in SHAPED:
+        mods[name].launches_by_shape.clear()
+    for route in mods["track_interp"].launches_by_route:
+        mods["track_interp"].launches_by_route[route] = 0
+
+
+def phase_workflow() -> tuple[dict, str, dict]:
     import torch
     from repro_torch.kernels import agl_lookup, dynamic_rates, ops
     from repro_torch.kernels import track_interp
@@ -606,14 +789,14 @@ def phase_workflow() -> tuple[dict, str]:
                     f"{time.perf_counter() - t0:.2f}s")
     mods = {"track_interp": track_interp, "agl_lookup": agl_lookup,
             "dynamic_rates": dynamic_rates}
-    for mod in mods.values():
-        mod.launches = 0
+    zero_counters(mods)
     ops.reset_pipeline_stats()
     t0 = time.perf_counter()
     reports = wf.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: mod.launches for name, mod in mods.items()}
+    shapes = snapshot_shapes(mods)
     stats = ops.get_pipeline_stats()
     for r in reports:
         say("workflow", f"{r.phase:9s}: {r.tasks:4d} tasks on {r.workers} "
@@ -621,13 +804,14 @@ def phase_workflow() -> tuple[dict, str]:
                         f"({r.messages} messages)")
     say("workflow", f"end to end {wall:.3f}s; launches {launches}; "
                     f"pipeline stats {stats}")
+    say_shapes("workflow", shapes, launches)
     if min(launches.values()) < 1:
         raise AssertionError(f"the workflow bypassed a kernel: {launches}")
     if stats["intermediate_transfers"] != 0:
         raise AssertionError(f"fused path crossed the host: {stats}")
     if [r.phase for r in reports] != ["organize", "archive", "process"]:
         raise AssertionError(f"phases ran: {[r.phase for r in reports]}")
-    return launches, wf.archive_dir
+    return launches, wf.archive_dir, shapes
 
 
 def phase_globe(archive_dir: str, globe_dem) -> None:
@@ -788,8 +972,7 @@ def phase_screen_workflow() -> dict:
     mods = {"track_interp": track_interp, "agl_lookup": agl_lookup,
             "dynamic_rates": dynamic_rates,
             "encounter_screen": encounter_screen}
-    for mod in mods.values():
-        mod.launches = 0
+    zero_counters(mods)
     encounter_screen.launches_by_shape.clear()
     ops.reset_pipeline_stats()
     encounter_screen.reset_screen_stats()
@@ -798,6 +981,7 @@ def phase_screen_workflow() -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: mod.launches for name, mod in mods.items()}
+    shapes = snapshot_shapes(mods)
     by_shape = dict(sorted(encounter_screen.launches_by_shape.items()))
     stats = ops.get_pipeline_stats()
     sstats = encounter_screen.get_screen_stats()
@@ -818,6 +1002,7 @@ def phase_screen_workflow() -> dict:
     if phases != ["organize", "archive", "store-build", "process",
                   "screen"]:
         raise AssertionError(f"phases ran: {phases}")
+    say_shapes("screen", shapes, launches)
     say("screen", "encounter_screen launches by padded shape (Kp, Tp): "
                   + ", ".join(f"({k}, {t}): {n}"
                               for (k, t), n in by_shape.items()))
@@ -887,7 +1072,7 @@ def phase_screen_workflow() -> dict:
     say("screen", f"store path = zip path bitwise over {len(by_zip)} "
                   f"tracks on the card")
     profile_screen_tasks(wf, tasks[:SCREEN_PROFILE_TASKS])
-    return launches
+    return launches, shapes
 
 
 def profile_screen_tasks(wf, tasks) -> None:
@@ -1298,9 +1483,12 @@ def main() -> int:
                  f"{time.perf_counter() - t0:.2f}s")
     results = phase_kernels(globe)
     screen = phase_screen_kernels(screen_floor)
-    launches, archive_dir = phase_workflow()
+    launches, archive_dir, zip_shapes = phase_workflow()
     phase_globe(archive_dir, globe)
-    screen_launches = phase_screen_workflow()
+    screen_launches, screen_shapes = phase_screen_workflow()
+    top_shapes = phase_workflow_shapes({"zip workflow": zip_shapes,
+                                        "store+screen workflow":
+                                            screen_shapes})
     flash = phase_flash()
     lm = phase_lm()
 
@@ -1329,11 +1517,19 @@ def main() -> int:
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": top["library_ms"],
             "shape": f"B={B_ROWS} N={N_KNOTS} M={WIDTHS[-1]}",
-            "per_width": {str(w): {k: r[k] for k in (
-                "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
-                for w, r in res["per_width"].items()},
+            "per_width": {str(w): {k: v for k, v in r.items() if k != "plan"}
+                          for w, r in res["per_width"].items()},
             "launches_screen_workflow": screen_launches[name],
         })
+        if name in SHAPED:
+            rows[-1]["plan"] = top["plan"]
+            rows[-1]["floor_ms"] = top["floor_ms"]
+            rows[-1]["workflow_top_shapes"] = {
+                label: {k: v for k, v in by[name].items() if k != "plan"}
+                for label, by in top_shapes.items()}
+        if "ieee_dt" in res:
+            rows[-1]["ieee_dt"] = {k: v for k, v in res["ieee_dt"].items()
+                                   if k != "plan"}
     C, K, T = SCREEN_TOP_SHAPE
     top = screen["per_shape"][f"{C}x{K}x{T}"]
     rows.append({

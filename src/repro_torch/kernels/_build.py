@@ -45,9 +45,10 @@ _LL = ctypes.c_longlong
 
 #: C entry point -> argtypes (every pointer and the stream as c_void_p).
 SIGNATURES = {
-    "track_interp_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "track_interp_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _P),
     "agl_lookup_f32": (_P, _P, _P, _P, _P, _LL, _I, _I, _F, _F, _P),
-    "dynamic_rates_f32": (_P, _P, _P, _I, _I, _F, _P),
+    "dynamic_rates_f32": (_P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _P),
     "encounter_screen_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _F, _F, _P),
     "flash_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
@@ -56,6 +57,7 @@ SIGNATURES = {
                              _P),
     "flash_attention_bf16_sm90": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                   _F, _P),
+    "launch_floor": (_I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -171,6 +173,18 @@ def stream_of(tensor) -> int:
     """The raw handle of torch's current stream on ``tensor``'s device."""
     import torch
     return torch.cuda.current_stream(tensor.device).cuda_stream
+
+
+def row_split(M: int, max_rows: int = 8) -> tuple[int, int]:
+    """(rows, per_row) for the kernels that give each row's M / 4 groups
+    of 4 a warp-multiple of threads (per_row, at most 256, which loop
+    past 4 * per_row) and a block of 256 threads up to ``max_rows``
+    whole rows."""
+    threads = 256
+    groups = -(-M // 4)
+    warps = -(-groups // 32)
+    per_row = 32 * min(threads // 32, warps)
+    return max(1, min(threads // per_row, max_rows)), per_row
 
 
 def check_inputs(name: str, tensors: dict, shapes: dict) -> None:

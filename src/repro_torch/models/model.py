@@ -12,7 +12,7 @@ Public API:
   params_from_numpy(cfg, tree, device)      -> params dict
   forward(cfg, params, batch)               -> logits (train/prefill path)
   loss_fn(cfg, params, batch)               -> scalar loss (value only)
-  init_cache(cfg, B, cache_len, device)     -> decode cache dict
+  init_cache(cfg, B, cache_len, fill=0, *, device) -> decode cache dict
   prefill(cfg, params, batch, cache_len)    -> logits, cache
   decode_step(cfg, params, cache, batch)    -> logits, cache
 
@@ -220,12 +220,13 @@ def _attn_cache_len(cfg: ArchConfig, cache_len: int) -> int:
     return cache_len
 
 
-def init_cache(cfg: ArchConfig, B: int, cache_len: int,
+def init_cache(cfg: ArchConfig, B: int, cache_len: int, fill: int = 0, *,
                device=None) -> dict:
     """Stacked per-superblock caches: for each sublayer s<i>, k and v
-    (n_superblocks, B, S, KV, hd) in the activation dtype and pos
-    (n_superblocks, B) int32, all zero, on ``device`` (default: the
-    card)."""
+    (n_superblocks, B, S, KV, hd) in the activation dtype, zero, and pos
+    (n_superblocks, B) int32 holding ``fill`` (the reference fills its
+    2-D int32 leaves, which are these), on ``device`` (keyword only;
+    default: the card)."""
     check_supported(cfg)
     device = ops.resolve_device(device)
     dtype = _adtype(cfg)
@@ -234,8 +235,8 @@ def init_cache(cfg: ArchConfig, B: int, cache_len: int,
     return {f"s{i}": {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
-        "pos": torch.zeros((cfg.n_superblocks, B), dtype=torch.int32,
-                           device=device)}
+        "pos": torch.full((cfg.n_superblocks, B), fill, dtype=torch.int32,
+                          device=device)}
         for i in range(cfg.pattern_period)}
 
 

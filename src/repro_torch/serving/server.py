@@ -34,18 +34,28 @@ class Request:
 
 class BatchedServer:
     """Serves on ``device`` (``None`` means the card; pass ``"cpu"`` for
-    the CPU).  ``params`` are moved there if they live elsewhere."""
+    the CPU).  ``params`` are moved there if they live elsewhere.
+
+    ``greedy`` and ``seed`` are the reference's keywords, stored as it
+    stores them.  Decoding is greedy, the reference's only behaviour:
+    no sampler exists, so ``greedy=False`` raises."""
 
     def __init__(self, cfg: ArchConfig, params, *, slots: int = 4,
-                 prompt_len: int = 64, cache_len: int = 256, device=None):
+                 prompt_len: int = 64, cache_len: int = 256,
+                 greedy: bool = True, seed: int = 0, device=None):
         if cfg.frontend is not None:
             raise ValueError("stub-frontend archs serve via embeds path")
+        if not greedy:
+            raise ValueError("BatchedServer decodes greedily only: no "
+                             "sampler exists (greedy=False)")
         self.cfg = cfg
         self.device = ops.resolve_device(device)
         self.params = M.tree_map(lambda x: x.to(self.device), params)
         self.slots = slots
         self.prompt_len = prompt_len
         self.cache_len = cache_len
+        self.greedy = greedy
+        self.seed = seed
         self.cache = M.init_cache(cfg, slots, cache_len, device=self.device)
         self.slot_req: list[Optional[Request]] = [None] * slots
         self._last_token = np.zeros((slots, 1), np.int32)

@@ -83,9 +83,11 @@ def test_track_interp_kernel(dev, B, N, C, M):
     assert interp_mod.launches == before + 1
     want = ref.track_interp_ref(*args)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    assert torch.equal(got, want)
     knots = interp_mod.track_interp(args[0], args[1], args[2], args[0])
-    torch.testing.assert_close(knots, ref.track_interp_ref(
-        args[0], args[1], args[2], args[0]), rtol=1e-5, atol=1e-4)
+    want_k = ref.track_interp_ref(args[0], args[1], args[2], args[0])
+    torch.testing.assert_close(knots, want_k, rtol=1e-5, atol=1e-4)
+    assert torch.equal(knots, want_k)
 
 
 @pytest.mark.parametrize("B,M", [(1, 16), (3, 240), (5, 100), (64, 1024)])
@@ -105,6 +107,200 @@ def test_dynamic_rates_kernel(dev, B, M):
     for c in (0, 1, 3):
         torch.testing.assert_close(got[:, c], want[:, c], rtol=1e-4,
                                    atol=1e-3)
+    assert torch.equal(got, want)
+
+
+def _misaligned(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``x`` whose storage starts one float past a
+    16-byte boundary (a slice at storage offset 1)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    assert out.is_contiguous() and out.data_ptr() % 16 == 4
+    return out
+
+
+def _interp_case(dev, B, N, C, M, seed, queries="random"):
+    t_in, v_in, count, t_out = _tracks(B, N, C, M, seed)
+    if queries != "random":
+        # Spread over each row's own knot span and a margin either side,
+        # so a thread's 4 queries cross several knots.
+        lo = t_in[:, :1] - 50
+        hi = t_in[np.arange(B), count - 1][:, None] + 50
+        t_out = (lo + (hi - lo) * np.linspace(0, 1, M)[None, :]).astype(
+            np.float32)
+        if queries == "decreasing":
+            t_out = t_out[:, ::-1].copy()
+    return [torch.from_numpy(x).to(dev) for x in (t_in, v_in, count, t_out)]
+
+
+def _check_split(split, M, expect):
+    """The split ``expect`` names was the one taken: "rows" (several
+    whole rows a block) or "loop" (a thread takes several groups of 4
+    in turn)."""
+    if expect == "rows":
+        assert split.rows > 1
+    elif expect == "loop":
+        assert split.per_row * 4 < M
+
+
+def _interp_equal(args, route, vec, expect=None):
+    before = dict(interp_mod.launches_by_route)
+    got = interp_mod.track_interp(*args)
+    torch.cuda.synchronize()
+    split = interp_mod.last_plan
+    assert interp_mod.launches_by_route[route] == before[route] + 1
+    assert split.route == route and split.vec == vec
+    _check_split(split, args[3].shape[1], expect)
+    want = ref.track_interp_ref(*args)
+    assert torch.equal(got, want), (got - want).abs().max().item()
+
+
+@pytest.mark.parametrize("B,N,C,M,queries,expect", [
+    (1024, 128, 3, 128, "random", "rows"),     # 8 rows a block
+    (9, 128, 3, 256, "increasing", "rows"),    # the forward walk
+    (9, 128, 3, 256, "decreasing", "rows"),    # a fresh search each query
+    (1, 128, 3, 1024, "increasing", None),     # the workflows' top shape
+    (4, 128, 3, 1024, "random", None),
+    (500, 300, 3, 2048, "increasing", "loop"),
+    (5, 40, 1, 64, "random", "rows"),          # C = 1: generic kernel,
+    (5, 40, 5, 64, "increasing", "rows"),      # 16-byte query loads
+])
+def test_track_interp_kernel_paths(dev, B, N, C, M, queries, expect):
+    args = _interp_case(dev, B, N, C, M, B * 7 + M, queries)
+    _interp_equal(args, "shared", True, expect)
+
+
+@pytest.mark.parametrize("M", [255, 257, 130])
+def test_track_interp_kernel_ragged_width(dev, M):
+    # M % 4 != 0: the scalar query path, every ragged tail length.
+    args = _interp_case(dev, 6, 100, 3, M, M)
+    _interp_equal(args, "shared", False)
+    args = _interp_case(dev, 6, 100, 3, M, M, "increasing")
+    _interp_equal(args, "shared", False)
+
+
+def test_track_interp_kernel_misaligned_bases(dev):
+    # Inputs whose bases sit 4 bytes past a 16-byte boundary: 4-byte
+    # staging copies and the scalar query path.
+    t_in, v_in, count, t_out = _interp_case(dev, 7, 128, 3, 256, 3)
+    args = [_misaligned(t_in), _misaligned(v_in), count, _misaligned(t_out)]
+    _interp_equal(args, "shared", False)
+    # Only the knots misaligned: the 16-byte query path still applies.
+    args = [_misaligned(t_in), _misaligned(v_in), count, t_out]
+    _interp_equal(args, "shared", True)
+
+
+@pytest.mark.parametrize("C,route", [(3, "shared"), (5, "gather")])
+def test_track_interp_kernel_longest_rows(dev, C, route):
+    # N = 12288: C = 3 stages 196 KB a row (shared memory past 48 KB);
+    # C = 5 does not fit 227 KB and reads its values from device memory.
+    B, N, M = 3, interp_mod.MAX_KNOTS, 1024
+    args = _interp_case(dev, B, N, C, M, C, "increasing")
+    _interp_equal(args, route, True)
+    args = _interp_case(dev, B, N, C, M, C + 1)
+    _interp_equal(args, route, True)
+
+
+def _rates_case(dev, B, M, seed, count=None):
+    rng = np.random.default_rng(seed)
+    v = np.zeros((B, 3, M), np.float32)
+    v[:, 0] = 40 + np.cumsum(rng.normal(0, 1e-4, (B, M)), axis=1)
+    v[:, 1] = -100 + np.cumsum(rng.normal(0, 1e-4, (B, M)), axis=1)
+    v[:, 2] = 1000 + np.cumsum(rng.normal(0, 2, (B, M)), axis=1)
+    if count is None:
+        count = rng.integers(0, M + 1, size=B)
+    count = np.broadcast_to(np.asarray(count), (B,)).astype(np.int32)
+    return (torch.from_numpy(v).to(dev),
+            torch.from_numpy(count.copy()).to(dev))
+
+
+def _rates_equal(v, count, vec, expect=None, dt=1.0):
+    got = rates_mod.dynamic_rates(v, count, dt)
+    torch.cuda.synchronize()
+    split = rates_mod.last_plan
+    assert split.vec == vec
+    M = v.shape[2]
+    _check_split(split, M, expect)
+    want = ref.dynamic_rates_ref(v, torch.clamp(count, max=M), dt)
+    assert torch.equal(got, want), (got - want).abs().max().item()
+    return got
+
+
+@pytest.mark.parametrize("B,M,expect", [
+    (1024, 128, "rows"),   # 8 rows a block
+    (9, 512, "rows"),
+    (1, 1024, None),       # the workflows' top shape
+    (3, 4096, "loop"),     # a warp takes 4 x 128 positions in turn
+    (70, 16, "rows"),      # a warp wider than its row
+])
+def test_dynamic_rates_kernel_paths(dev, B, M, expect):
+    v, count = _rates_case(dev, B, M, B + M)
+    _rates_equal(v, count, True, expect)
+    # Every row full length: every warp edge inside a track.
+    v, count = _rates_case(dev, B, M, B + M + 1, count=M)
+    _rates_equal(v, count, True, expect)
+
+
+@pytest.mark.parametrize("count", [0, 1, 2, 3, 4, 5, 127, 128, 129])
+def test_dynamic_rates_kernel_short_and_edge_counts(dev, count):
+    # Counts 0-2, and counts either side of a thread's and a warp's edge.
+    v, c = _rates_case(dev, 4, 256, count, count=count)
+    got = _rates_equal(v, c, True)
+    assert not got[:, :, count:].any()
+
+
+def test_dynamic_rates_kernel_count_past_width(dev):
+    # A count above M reads as M, as before the redesign.
+    v, count = _rates_case(dev, 5, 256, 9, count=[300, 257, 256, 1000, 2])
+    got = _rates_equal(v, count, True)
+    assert torch.equal(got, rates_mod.dynamic_rates(
+        v, torch.clamp(count, max=256), 1.0))
+
+
+@pytest.mark.parametrize("M", [255, 257, 130, 33])
+def test_dynamic_rates_kernel_ragged_width(dev, M):
+    v, count = _rates_case(dev, 6, M, M)
+    _rates_equal(v, count, False)
+    v, count = _rates_case(dev, 6, M, M + 1, count=M)
+    _rates_equal(v, count, False)
+
+
+def test_dynamic_rates_kernel_misaligned_base(dev):
+    v, count = _rates_case(dev, 6, 256, 21)
+    _rates_equal(_misaligned(v), count, False)
+    # dt other than 1 s: a power of two (divisions by powers of two), and
+    # not one (IEEE divisions).
+    _rates_equal(v, count, True, dt=0.5)
+    _rates_equal(v, count, True, dt=0.3)
+    _rates_equal(_misaligned(v), count, False, dt=0.3)
+
+
+def test_interp_and_rates_launch_only_the_plans_grid(dev):
+    # The C entries launch the plan's block count and refuse any other
+    # (cudaErrorInvalidConfiguration), launching nothing.
+    from repro_torch.kernels import _build
+    t_in, v_in, count, t_out = _interp_case(dev, 9, 128, 3, 256, 4)
+    B, N = t_in.shape
+    C, M = v_in.shape[1], t_out.shape[1]
+    out = torch.zeros((B, M, C), device=dev)
+    p = interp_mod.plan(B, N, C, M)
+    for blocks in (p.blocks - 1, p.blocks + 1):
+        rc = _build.lib().track_interp_f32(
+            t_in.data_ptr(), v_in.data_ptr(), count.data_ptr(),
+            t_out.data_ptr(), out.data_ptr(), B, N, C, M, p.rows, p.per_row,
+            blocks, p.smem, 0, int(p.vec), _build.stream_of(t_in))
+        assert rc == 9
+    v, rcount = _rates_case(dev, 9, 256, 5)
+    r_out = torch.zeros((9, 4, 256), device=dev)
+    q = rates_mod.plan(9, 256)
+    for blocks in (q.blocks - 1, q.blocks + 1):
+        rc = _build.lib().dynamic_rates_f32(
+            v.data_ptr(), rcount.data_ptr(), r_out.data_ptr(), 9, 256, 1.0,
+            q.rows, q.per_row, blocks, int(q.vec), _build.stream_of(v))
+        assert rc == 9
+    torch.cuda.synchronize()
+    assert not out.any() and not r_out.any()
 
 
 @pytest.mark.parametrize("B,M,H,W", [

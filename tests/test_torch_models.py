@@ -9,6 +9,7 @@ round bf16 products at other places.
 """
 
 import dataclasses
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -254,7 +255,7 @@ def test_bf16_forward_and_decode(impl):
     assert _rel(got.numpy(), np.asarray(want)) < 0.03
     _, jc = JM.decode_step(jcfg, jp, JM.init_cache(jcfg, 2, 8),
                            {"tokens": jnp.asarray(toks[:, :1])})
-    _, tc = M.decode_step(cfg, tp, M.init_cache(cfg, 2, 8, "cpu"),
+    _, tc = M.decode_step(cfg, tp, M.init_cache(cfg, 2, 8, device="cpu"),
                           {"tokens": torch.from_numpy(toks[:, :1])})
     for key in ("k", "v", "pos"):
         assert str(tc["s0"][key].dtype).split(".")[-1] == \
@@ -286,3 +287,36 @@ def test_entry_points_default_to_the_card():
             make()
     params = M.init_params(cfg, gen, "cpu")
     assert params["embed"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("fill", [0, 7])
+@pytest.mark.parametrize("name", ["stablelm-12b", "minicpm-2b"])
+def test_init_cache_fill_matches_reference(name, fill):
+    """init_cache(cfg, B, L, fill): pos holds fill, k and v are zero, leaf
+    for leaf as the reference's init_cache(cfg, B, L, fill)."""
+    jcfg, cfg = _configs(name)
+    want = JM.init_cache(jcfg, 2, 8, fill)
+    got = M.init_cache(cfg, 2, 8, fill, device="cpu")
+    assert sorted(got) == sorted(want)
+    for sub, leaves in want.items():
+        assert sorted(got[sub]) == sorted(leaves)
+        for key, w in leaves.items():
+            g = got[sub][key]
+            w = np.asarray(w)
+            assert tuple(g.shape) == w.shape, (sub, key)
+            assert str(g.dtype).split(".")[-1] == str(w.dtype), (sub, key)
+            np.testing.assert_array_equal(g.float().numpy(),
+                                          w.astype(np.float32))
+        assert (got[sub]["pos"] == fill).all()
+        assert not got[sub]["k"].any() and not got[sub]["v"].any()
+
+
+def test_init_cache_device_is_keyword_only():
+    """A positional fourth argument is the reference's fill, never a
+    device."""
+    cfg = get_arch("stablelm-12b", reduced=True)
+    with pytest.raises(TypeError):
+        M.init_cache(cfg, 1, 4, 0, "cpu")
+    params = inspect.signature(M.init_cache).parameters
+    assert list(params)[3] == "fill"
+    assert params["device"].kind is inspect.Parameter.KEYWORD_ONLY

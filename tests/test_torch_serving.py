@@ -207,3 +207,29 @@ def test_launch_serve_cli_mirrors_reference_flags(capsys):
     if not torch.cuda.device_count():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             serve.main(["--requests", "1"])
+
+
+def test_server_takes_reference_keywords(server_env):
+    """greedy and seed, as the reference's callers pass them: the same
+    tokens and steps as without them, and as the reference's server."""
+    cfg, params = server_env
+    jcfg, jp, _, _ = _env("minicpm-2b")
+    kw = dict(slots=2, prompt_len=16, cache_len=48)
+    plain = BatchedServer(cfg, params, device="cpu", **kw)
+    server = BatchedServer(cfg, params, greedy=True, seed=0, device="cpu",
+                           **kw)
+    jserver = JaxServer(jcfg, jp, greedy=True, seed=0, **kw)
+    assert server.greedy is True and server.seed == 0
+    runs = []
+    for srv, cls in ((plain, Request), (server, Request),
+                     (jserver, JaxRequest)):
+        reqs = _requests(cls, cfg.vocab_size, 4, 11, 14, 2, 7)
+        srv.serve(reqs)
+        runs.append(([r.tokens_out for r in reqs], srv.steps))
+    assert runs[0] == runs[1] == runs[2]
+
+
+def test_server_rejects_sampling(server_env):
+    cfg, params = server_env
+    with pytest.raises(ValueError, match="greedy"):
+        BatchedServer(cfg, params, greedy=False, device="cpu")
