@@ -56,8 +56,20 @@ Phases, each printed as it runs:
              shape; 200 screen tasks profiled (host split, device busy
              time, the screen kernels' own device time); then
              track_interp and dynamic_rates at the most frequent launch
-             shape of phase 3 and of phase 5, bitwise, timed beside
-             their plain versions, bounds and launch floors.
+             shape of phase 3, of phase 5 and of phase 5b, bitwise,
+             timed beside their plain versions, bounds and launch
+             floors.
+5b. dag    — the same workflow as one streaming DAG (mode="dag"): phase
+             5's data and settings, at phase 5's root (moved aside),
+             with the four launch counters zeroed just before and read
+             just after; its store/ tree and candidates.json held byte
+             for byte against phase 5's, its job_seconds printed beside
+             the barrier run's phase seconds, its launches by shape (the
+             cell-bin emitter's re-derivation in the manager thread
+             included, then replayed alone) and its screen stats; then
+             a small DAG (1 raw file at scale 1/1000, 2048 points a
+             shard, 4 processes workers, 2 manager shards) held byte for
+             byte against a barrier run of the same data on the card.
 6. flash   — the flash-attention kernels against their plain version at
              the six shapes of tests/test_flash_attention.py in f32
              (rtol/atol 2e-5), its bf16 case, stablelm-12b's heads (B =
@@ -1072,6 +1084,145 @@ def phase_screen_workflow() -> dict:
     say("screen", f"store path = zip path bitwise over {len(by_zip)} "
                   f"tracks on the card")
     profile_screen_tasks(wf, tasks[:SCREEN_PROFILE_TASKS])
+    return launches, shapes, {
+        "phase_seconds": {r.phase: r.job_seconds for r in reports},
+        "wall_s": wall, "stats": sstats}
+
+
+def tree_bytes(root: str) -> dict:
+    """Every file under ``root``: relative path -> bytes."""
+    out = {}
+    for d, _dirs, files in os.walk(root):
+        for f in files:
+            path = os.path.join(d, f)
+            with open(path, "rb") as fh:
+                out[os.path.relpath(path, root)] = fh.read()
+    return out
+
+
+def same_tree(got: dict, want: dict, what: str) -> None:
+    """Raise unless the store trees and candidate files are equal."""
+    if got.get("candidates.json") != want.get("candidates.json"):
+        raise AssertionError(f"{what}: candidates.json differs")
+    store = {k: v for k, v in want.items() if k.startswith("store")}
+    if not store or {k: v for k, v in got.items()
+                     if k.startswith("store")} != store:
+        raise AssertionError(f"{what}: store/ differs")
+
+
+def phase_dag(barrier: dict) -> tuple[dict, dict]:
+    """The store + screen workflow as one streaming DAG on the card, at
+    phase 5's data and settings and at its root (the store manifest
+    records the archive root), held byte for byte against phase 5's
+    barrier run; then a small DAG on 4 processes workers and 2 manager
+    shards against a barrier run of the same data."""
+    import torch
+    from repro_torch.kernels import agl_lookup, dynamic_rates, ops
+    from repro_torch.kernels import encounter_screen, track_interp
+    from repro_torch.tracks.segments import segment_tasks_from_store
+    from repro_torch.tracks.workflow import TrackWorkflow, _CellBinEmitter
+
+    root = WORK + "_screen"
+    barrier_root = root + "_barrier"
+    shutil.rmtree(barrier_root, ignore_errors=True)
+    os.rename(root, barrier_root)
+    want = tree_bytes(barrier_root)
+    wf = TrackWorkflow(root, n_workers=8, tasks_per_message=4,
+                       poll_interval=0.005, device="cuda", input="store",
+                       store_target_points=8192, screen=True, mode="dag",
+                       **SCREEN_WF)
+    wf.generate_raw(n_files=8, scale=500)
+    mods = {"track_interp": track_interp, "agl_lookup": agl_lookup,
+            "dynamic_rates": dynamic_rates,
+            "encounter_screen": encounter_screen}
+    zero_counters(mods)
+    encounter_screen.launches_by_shape.clear()
+    ops.reset_pipeline_stats()
+    encounter_screen.reset_screen_stats()
+    t0 = time.perf_counter()
+    reports = wf.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: mod.launches for name, mod in mods.items()}
+    shapes = snapshot_shapes(mods)
+    by_shape = dict(sorted(encounter_screen.launches_by_shape.items()))
+    stats = ops.get_pipeline_stats()
+    sstats = encounter_screen.get_screen_stats()
+    if [r.phase for r in reports] != ["dag"]:
+        raise AssertionError(f"phases ran: {[r.phase for r in reports]}")
+    same_tree(tree_bytes(root), want, "DAG vs barrier")
+    r = reports[0]
+    barrier_sum = sum(barrier["phase_seconds"].values())
+    say("dag", f"{r.tasks} tasks on {r.workers} threads workers in "
+               f"{r.job_seconds:.3f}s ({r.messages} messages; end to end "
+               f"{wall:.3f}s) beside the barrier run's phases "
+               f"{barrier_sum:.3f}s in sum (end to end "
+               f"{barrier['wall_s']:.3f}s): "
+               + ", ".join(f"{k} {v:.3f}s"
+                           for k, v in barrier["phase_seconds"].items()))
+    say("dag", f"store/ ({len([k for k in want if k.startswith('store')])} "
+               f"files) and candidates.json byte-identical to the barrier "
+               f"run's")
+    say("dag", f"screen stats {sstats} (barrier: {barrier['stats']}); "
+               f"launches {launches}, the cell-bin emitter's re-derivation "
+               f"in the manager thread included; pipeline stats {stats}")
+    say_shapes("dag", shapes, launches)
+    say("dag", "encounter_screen launches by padded shape (Kp, Tp): "
+               + ", ".join(f"({k}, {t}): {n}"
+                           for (k, t), n in by_shape.items()))
+    if sum(by_shape.values()) != launches["encounter_screen"]:
+        raise AssertionError(f"launches_by_shape {by_shape} does not sum "
+                             f"to {launches['encounter_screen']}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"the DAG bypassed a kernel: {launches}")
+    if stats["intermediate_transfers"] != 0:
+        raise AssertionError(f"fused path crossed the host: {stats}")
+
+    # The emitter's share, replayed alone: a fresh emitter fed every
+    # committed shard's process task, as the DAG fed it.
+    zero_counters(mods)
+    emitter = _CellBinEmitter(wf.store_dir, wf.screen_grid,
+                              wf.screen_config, device="cuda")
+    t0 = time.perf_counter()
+    cut = [t for task in segment_tasks_from_store(wf.store_dir,
+                                                  granularity="shard")
+           for t in emitter.feed(task, None)]
+    torch.cuda.synchronize()
+    say("dag", f"of which the emitter's re-derivation, replayed alone: "
+               f"{ {n: m.launches for n, m in mods.items()} } in "
+               f"{time.perf_counter() - t0:.3f}s, cutting {len(cut)} "
+               f"generations in shard order")
+
+    # Processes workers (spawned: the parent runs CUDA by now) and two
+    # manager shards, at tests/test_workflow_screen.py's settings.
+    small = dict(n_workers=4, poll_interval=0.003, device="cuda",
+                 input="store", store_target_points=2048, screen=True,
+                 **SCREEN_WF)
+    trees = {}
+    for mode, kw in (("barrier", {}),
+                     ("dag", dict(exec_backend="processes",
+                                  n_manager_shards=2))):
+        sroot = WORK + "_dag_small"
+        shutil.rmtree(sroot, ignore_errors=True)
+        swf = TrackWorkflow(sroot, mode=mode, **small, **kw)
+        swf.generate_raw(n_files=1, scale=1000)
+        t0 = time.perf_counter()
+        sreports = swf.run()
+        trees[mode] = tree_bytes(sroot)
+        say("dag", f"small {mode}"
+                   + (" (4 processes workers, 2 manager shards)"
+                      if kw else " (4 threads workers)")
+                   + f": {time.perf_counter() - t0:.3f}s, "
+                   + ", ".join(f"{x.phase} {x.tasks} tasks "
+                               f"{x.job_seconds:.3f}s" for x in sreports))
+        shutil.rmtree(sroot)
+    same_tree(trees["dag"], trees["barrier"], "small DAG vs barrier")
+    n = len(json.loads(trees["dag"]["candidates.json"])["candidates"])
+    if n < 1:
+        raise AssertionError("the small DAG found no candidates")
+    say("dag", f"small DAG: store/ and candidates.json ({n} candidates) "
+               f"byte-identical to the barrier run's")
+    shutil.rmtree(barrier_root)
     return launches, shapes
 
 
@@ -1485,10 +1636,12 @@ def main() -> int:
     screen = phase_screen_kernels(screen_floor)
     launches, archive_dir, zip_shapes = phase_workflow()
     phase_globe(archive_dir, globe)
-    screen_launches, screen_shapes = phase_screen_workflow()
+    screen_launches, screen_shapes, barrier = phase_screen_workflow()
+    dag_launches, dag_shapes = phase_dag(barrier)
     top_shapes = phase_workflow_shapes({"zip workflow": zip_shapes,
                                         "store+screen workflow":
-                                            screen_shapes})
+                                            screen_shapes,
+                                        "store+screen DAG": dag_shapes})
     flash = phase_flash()
     lm = phase_lm()
 
@@ -1520,6 +1673,7 @@ def main() -> int:
             "per_width": {str(w): {k: v for k, v in r.items() if k != "plan"}
                           for w, r in res["per_width"].items()},
             "launches_screen_workflow": screen_launches[name],
+            "launches_dag_workflow": dag_launches[name],
         })
         if name in SHAPED:
             rows[-1]["plan"] = top["plan"]
@@ -1545,6 +1699,7 @@ def main() -> int:
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
         "library_ms": None, "shape": f"C={C} K={K} T={T}",
         "per_shape": screen["per_shape"],
+        "launches_dag_workflow": dag_launches["encounter_screen"],
     })
     top_name = f"B=1 H=32 KV=8 T={FLASH_LM_T[-1]} S={FLASH_LM_T[-1]} " \
                f"hd=160 causal bfloat16"

@@ -1,4 +1,4 @@
-"""``run_job`` — one entry point, two live execution backends.
+"""``run_job`` — one entry point, three execution backends.
 
     from repro_torch.runtime import run_job
     r = run_job(tasks, fn, backend="processes",
@@ -8,8 +8,10 @@ Backends:
   * ``threads``   — in-process worker threads (fast start, shared memory).
   * ``processes`` — one OS process per worker via multiprocessing: the
     real process isolation of triples-mode NPPN placement.
+  * ``sim``       — the calibrated discrete-event engine at full LLSC
+    scale (``fn`` is not executed; timing comes from ``cost_model``).
 
-Both run the identical §II.D protocol through one
+All three run the identical §II.D protocol through one
 :class:`~repro_torch.runtime.protocol.SchedulerCore`, so for a fixed job spec
 they produce the same completed-task set and the same dispatch log
 (``RunResult.batches``).
@@ -17,7 +19,7 @@ they produce the same completed-task set and the same dispatch log
 A :class:`~repro_torch.core.triples.TriplesConfig` triple selects worker count
 and placement uniformly: ``worker_processes`` (total processes minus the
 manager) becomes the worker count on every backend, and nodes/NPPN feed
-the cost-aware policies' task estimates.
+the sim's I/O-contention model.
 """
 
 from __future__ import annotations
@@ -31,16 +33,18 @@ from repro_torch.runtime.protocol import (
     drive)
 from repro_torch.runtime.result import RunResult
 from repro_torch.runtime.transports import TRANSPORTS
+from repro_torch.runtime import sim as _sim
 
-BACKENDS = ("threads", "processes")
+BACKENDS = ("threads", "processes", "sim")
 
 __all__ = ["BACKENDS", "default_topology", "run_job"]
 
 
 def default_topology(n_workers: int) -> tuple[int, int]:
     """Default (nodes, nppn) when no triple is given: NPPN 8 (the paper's
-    best-performing setting), as many nodes as that implies — the
-    topology the cost-aware policies estimate task seconds at.
+    best-performing setting), as many nodes as that implies.  Shared by
+    run_job's sim branch and the cost-aware policies' task estimates, so
+    both simulate the same I/O-contention topology.
     """
     return max(n_workers // 8, 1), min(n_workers, 8)
 
@@ -63,10 +67,13 @@ def run_job(tasks: Sequence[Task],
             batch_fn: Optional[Callable[[list[Task]], dict]] = None,
             raise_on_failure: bool = True,
             worker_fail_after: Optional[dict[str, int]] = None,
-            # cost model: the cost-aware policies' task estimates
+            # cost model: sim timing AND the cost-aware policies' task
+            # estimates (all backends); remaining knobs are sim-only
             cost_model: Optional[Any] = None,
             nodes: Optional[int] = None,
             nppn: Optional[int] = None,
+            worker_death: Optional[dict[int, float]] = None,
+            worker_speed: Optional[Sequence[float]] = None,
             speculative: bool = False,
             speculation_max_copies: int = 2,
             speed_feedback: bool = False,
@@ -74,39 +81,49 @@ def run_job(tasks: Sequence[Task],
             elastic: bool = False,
             fleet: Optional[Any] = None,
             worker_slow_factor: Optional[dict[str, float]] = None,
+            legacy_launch_penalty: float = 1.0,
             mp_context: Optional[str] = None,
             tracer: Optional[Any] = None) -> RunResult:
     """Run a self-scheduled job on the chosen execution backend.
 
-    ``fn`` is the per-task worker function (required).  If ``fn`` exposes a ``process_batch`` method —
+    ``fn`` is the per-task worker function (required for live backends,
+    ignored by ``sim``).  If ``fn`` exposes a ``process_batch`` method —
     or ``batch_fn`` is passed — a multi-task ASSIGN executes as ONE call
     (e.g. one bucketed pass of the segment kernels) instead of per-task
     Python dispatch.  Task payloads should be plain strings so they
     survive every backend's message path (pickled process messages,
     JSON checkpoints) — e.g. the track workflow's store-backed tasks
-    name zip archives by path.  ``worker_fail_after`` is the
-    fault-injection hook.  ``on_checkpoint`` fires on wall-clock
-    intervals.
+    name shard ranges as ``store://<root>#shard=<id>&rows=<a>:<b>``
+    URIs (:mod:`repro_torch.store.uri`) and its store-build tasks carry
+    ``ShardPlan.dumps()`` JSON.  ``worker_fail_after`` / ``worker_death`` are
+    fault-injection hooks (live / sim respectively).  ``on_checkpoint``
+    fires on wall-clock intervals and therefore applies to the live
+    backends only; the sim backend ignores it (simulated jobs rebuild
+    from their task list, not from mid-run state).
 
     ``policy`` selects the scheduling policy (a name from
     :data:`repro_torch.runtime.policies.POLICY_NAMES` or a configured
     :class:`~repro_torch.runtime.policies.SchedulingPolicy` instance) with
-    identical semantics on both backends; the default ``static``
+    identical semantics on all three backends; the default ``static``
     keeps the historical organizer-order fixed-batch dispatch bitwise.
     Cost-aware policies (``sized_lpt``, ``adaptive_chunk``) estimate
     per-task seconds from ``cost_model`` (default: the §IV.C process
     phase) at the job's topology — on EVERY backend, so a fixed job
-    spec orders and chunks identically on threads and processes.
+    spec orders and chunks identically whether it runs live or
+    simulated.
 
     ``n_manager_shards`` > 1 partitions the pending queue by locality
     run into N coordinator shards (:class:`ShardedCore`): each shard
     owns a disjoint task partition and a contiguous block of workers,
     with work-stealing from sibling tails once a shard drains.  On the
     live backends the shards are N independent decision loops over one
-    transport.  Requires a policy *name* (each shard instantiates its own).
+    transport; on the sim backend each shard gets its own message
+    clock, so ASSIGN throughput scales past the single-coordinator §V
+    wall.  Requires a policy *name* (each shard instantiates its own).
 
     Streaming-task payload contract: tasks admitted mid-run (via
-    ``core.admit``) must carry everything the worker needs in
+    ``core.admit`` — the streaming DAG's edge emissions,
+    :mod:`repro_torch.runtime.dag`) must carry everything the worker needs in
     ``task_id`` / ``size_bytes`` / ``timestamp`` / ``payload`` /
     ``cpu_cost_hint``, with ``payload`` a plain string: those five
     fields are exactly what survives the checkpoint frontier
@@ -114,9 +131,10 @@ def run_job(tasks: Sequence[Task],
     path, so a resumed manager can re-admit the task bit-identically
     without re-running its producer.
 
-    ``tracer`` attaches a tracer object (``SchedulerCore.attach_tracer``):
-    task lifecycle instants and exec spans are emitted on both backends,
-    and tracing never changes a dispatch decision.
+    ``tracer`` attaches a tracer object (``attach_tracer``): task lifecycle
+    instants and exec spans are emitted on every backend (the sim binds
+    its virtual clock, so traced sim runs stay bit-reproducible and
+    tracing never changes a dispatch decision).
 
     ``speculative`` re-issues the longest-in-flight task to idle
     workers once the queue drains (at most ``speculation_max_copies``
@@ -130,13 +148,16 @@ def run_job(tasks: Sequence[Task],
     ``speed_model``): cost-aware policies then size each worker's next
     chunk by its observed relative speed.  Because chunk sizes depend
     on measured timings, this is an explicit exception to the
-    cross-backend bit-identical dispatch contract.
+    cross-backend bit-identical dispatch contract (sim runs stay
+    deterministic per seed — virtual-clock observations).
 
     ``elastic`` attaches a threshold-driven
     :class:`~repro_torch.runtime.fleet.FleetController` (or pass a configured
     ``fleet``) that grows/shrinks the worker pool from observed queue
-    depth and idleness — threads backend, single manager shard only.  ``worker_slow_factor`` maps live worker ids (``"w3"``)
-    to slowdown multipliers (straggler injection).
+    depth and idleness — sim and threads backends, single manager
+    shard only.  ``worker_slow_factor`` maps live worker ids (``"w3"``)
+    to slowdown multipliers (the threads mirror of the sim's
+    ``worker_speed`` straggler injection).
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; "
@@ -178,7 +199,7 @@ def run_job(tasks: Sequence[Task],
                 "drives one worker pool; shards own worker blocks)")
         if backend == "processes":
             raise ValueError(
-                "elastic fleets support the threads backend only "
+                "elastic fleets support the sim and threads backends only "
                 "(ProcessTransport cannot spawn workers mid-run)")
     if n_manager_shards > 1:
         core: Any = ShardedCore(
@@ -200,6 +221,33 @@ def run_job(tasks: Sequence[Task],
                              speculative=speculative,
                              speculation_max_copies=speculation_max_copies,
                              speed_model=speed_model, fleet=fleet)
+
+    if backend == "sim":
+        result = _sim.simulate_self_scheduling(
+            list(tasks),
+            n_workers=n_workers,
+            nodes=nodes if nodes is not None else default_nodes,
+            nppn=nppn if nppn is not None else default_nppn,
+            model=cost_model,
+            poll_interval=poll_interval,
+            worker_death=worker_death,
+            failure_timeout=(failure_timeout if failure_timeout is not None
+                             else 30.0),
+            legacy_launch_penalty=legacy_launch_penalty,
+            worker_speed=worker_speed,
+            speculative=speculative,
+            core=core,
+            n_manager_shards=n_manager_shards,
+            tracer=tracer)
+        # Same contract as the live backends: an incomplete job (e.g.
+        # every simulated worker died) raises instead of returning a
+        # silently partial result.
+        missing = core.total - len(result.completed_ids)
+        if raise_on_failure and missing > 0:
+            raise RuntimeError(
+                f"sim job ended with {missing} of {core.total} tasks "
+                f"incomplete (all workers dead?)")
+        return result
 
     if fn is None:
         raise ValueError(f"backend {backend!r} needs a worker fn")

@@ -1,18 +1,28 @@
 """End-to-end track-processing workflow driver (paper §III.A).
 
-Port of ``repro/tracks/workflow.py`` in barrier mode: the phases
-organize -> archive [-> store-build] -> process [-> screen] run one
-after another on the self-scheduling runtime
-(:func:`repro_torch.runtime.run_job`), with a JSON phase checkpoint so a
-killed job resumes where it left off, and periodic mid-phase manager
-checkpoints so it resumes inside a phase.  The process and screen
-phases run on the card (``device=None``) unless the caller names
-another device.
+Port of ``repro/tracks/workflow.py``: the phases organize -> archive
+[-> store-build] -> process [-> screen] run on the self-scheduling
+runtime (:func:`repro_torch.runtime.run_job`), with a JSON phase
+checkpoint so a killed job resumes where it left off, and periodic
+mid-phase manager checkpoints so it resumes inside a phase.  The process
+and screen phases run on the card (``device=None``) unless the caller
+names another device.
 
 With ``input="store"`` a ``store-build`` phase (one self-scheduled task
 per shard, :class:`repro_torch.store.ShardBuilder` as the worker fn)
 ingests the zip archives into the columnar track store, and the process
 phase reads ``store://`` shard tasks instead of re-parsing CSV text.
+
+``mode="dag"`` (``--pipeline dag``) replaces the barrier sequence with
+the streaming phase DAG (:func:`repro_torch.runtime.run_dag`): each
+completed archive feeds the shard planner (:class:`_ShardPlanEmitter`),
+which cuts a store-build task the moment enough consecutive archives
+exist; each committed shard (:class:`_ShardCommitEmitter` appends it to
+the manifest) immediately emits its process task; each processed shard
+admits the screen cells it completes (:class:`_CellBinEmitter`).  The
+final store and ``candidates.json`` are byte-identical to a barrier
+run's.  ``n_manager_shards`` > 1 splits the coordinator into that many
+shard queues (paper §V's message-rate wall).
 
 ``screen=True`` (which needs ``input="store"``) appends an
 encounter-screen phase: processed segment rows are binned into a
@@ -24,6 +34,8 @@ the deduplicated candidate encounters written to ``candidates.json``.
 CLI:  PYTHONPATH=src python -m repro_torch.tracks.workflow
       PYTHONPATH=src python -m repro_torch.tracks.workflow --device cpu \\
           --backend processes --input store --screen
+      PYTHONPATH=src python -m repro_torch.tracks.workflow --device cpu \\
+          --input store --screen --pipeline dag --manager-shards 2
 """
 
 from __future__ import annotations
@@ -45,7 +57,9 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.encounter_screen import (
     ScreenConfig, bin_screen_rows, dedup_candidates, rows_from_track,
     screen_cells)
-from repro_torch.runtime import ManagerCheckpoint, RunResult, run_job
+from repro_torch.runtime import (
+    EdgeEmitter, ManagerCheckpoint, RunResult, StreamingDAG, run_dag,
+    run_job)
 from repro_torch.store import writer as store_writer
 from repro_torch.store.format import MANIFEST_NAME
 from repro_torch.store.uri import make_store_uri
@@ -55,12 +69,12 @@ from repro_torch.tracks.datasets import (
 from repro_torch.tracks.organize import Organizer, organize_tasks_from_dir
 from repro_torch.tracks.registry import synthetic_registry
 from repro_torch.tracks.segments import (
-    SegmentProcessor, segment_tasks_from_archive_tree,
-    segment_tasks_from_store, split_segments)
+    _STORE_BYTES_PER_POINT, SegmentProcessor,
+    segment_tasks_from_archive_tree, segment_tasks_from_store,
+    split_segments)
 
 #: Workflow modes of the reference that later slices of the port bring.
 NOT_PORTED = {
-    "--pipeline dag": "the DAG slice (runtime/dag.py)",
     "--serve": "the serving slice (repro.serving)",
     "--trace": "the observability slice (repro.obs)",
 }
@@ -79,6 +93,130 @@ class PhaseReport:
                  workers: int) -> "PhaseReport":
         return cls(phase=phase, job_seconds=r.job_seconds, tasks=tasks,
                    workers=workers, messages=r.messages_sent)
+
+
+class _ShardPlanEmitter(EdgeEmitter):
+    """archive -> store-build streaming edge: cut shard plans as soon as
+    enough *consecutive* archives exist.
+
+    :func:`repro_torch.store.writer.plan_shards` assigns tracks to shards
+    in sorted-id order, so the plan for shard k depends only on the sizes
+    of the first tracks in that order.  The emitter is primed with the
+    archive node's task ids (the expected zip set), buffers sizes as
+    archives complete out of order, and consumes the contiguous sorted
+    prefix through the same greedy cut — the resulting partition (and
+    shard numbering) is identical to the barrier build's, it just
+    doesn't wait for the last archive before planning the first shard.
+    """
+
+    def __init__(self, archive_root: str, target_points: int):
+        self.archive_root = archive_root
+        self.target_points = target_points
+        self.expected: list[str] = []       # sorted zip ids, set by prime
+        self.idx = 0                        # consumed contiguous prefix
+        self.sizes: dict[str, int] = {}     # zip id -> bytes (fed)
+        self.cur: list[str] = []            # open shard's zip ids
+        self.cur_points = 0
+        self.n_shards = 0
+
+    def prime(self, src_task_ids) -> None:
+        # Archive task id '<y>/<t>/<s>/<b>/<icao>' -> zip id '<...>.zip',
+        # the same root-relative id discover_sources would assign.
+        self.expected = sorted(f"{tid}.zip" for tid in src_task_ids)
+
+    def _cut(self) -> Task:
+        plan = store_writer.ShardPlan(
+            f"s{self.n_shards:05d}",
+            tuple((rel, os.path.join(self.archive_root, rel))
+                  for rel in self.cur))
+        self.n_shards += 1
+        size = sum(self.sizes.pop(rel) for rel in self.cur)
+        self.cur, self.cur_points = [], 0
+        return Task(task_id=f"store/{plan.shard_id}", size_bytes=size,
+                    payload=plan.dumps())
+
+    def _drain(self, skip_missing: bool = False) -> list[Task]:
+        out: list[Task] = []
+        while self.idx < len(self.expected):
+            rel = self.expected[self.idx]
+            if rel not in self.sizes:
+                if not skip_missing:
+                    break
+                # Failed archive: leave the hole, store what exists.
+                self.idx += 1
+                continue
+            est = max(self.sizes[rel] // store_writer.EST_BYTES_PER_OBS, 1)
+            if self.cur and self.cur_points + est > self.target_points:
+                out.append(self._cut())
+            self.cur.append(rel)
+            self.cur_points += est
+            self.idx += 1
+        return out
+
+    def feed(self, task: Task, result) -> list[Task]:
+        rel = f"{task.task_id}.zip"
+        size = getattr(result, "bytes_out", None)
+        if size is None and isinstance(result, dict):
+            size = result.get("bytes_out")
+        if size is None:
+            # Resumed/sim completion without a live result doc: the zip
+            # is on disk (archives commit atomically), measure it.
+            path = os.path.join(self.archive_root, rel)
+            try:
+                size = os.path.getsize(path)
+            except OSError:
+                size = max(task.size_bytes, 1)
+        self.sizes[rel] = int(size)
+        return self._drain()
+
+    def finish(self) -> list[Task]:
+        out = self._drain(skip_missing=True)
+        if self.cur:
+            out.append(self._cut())
+        return out
+
+    def state(self) -> dict:
+        return {"expected": self.expected, "idx": self.idx,
+                "sizes": self.sizes, "cur": self.cur,
+                "cur_points": self.cur_points, "n_shards": self.n_shards}
+
+    def restore(self, state: dict) -> None:
+        self.expected = list(state["expected"])
+        self.idx = int(state["idx"])
+        self.sizes = {k: int(v) for k, v in state["sizes"].items()}
+        self.cur = list(state["cur"])
+        self.cur_points = int(state["cur_points"])
+        self.n_shards = int(state["n_shards"])
+
+
+class _ShardCommitEmitter(EdgeEmitter):
+    """store-build -> process streaming edge: append each built shard to
+    the manifest (:func:`repro_torch.store.writer.commit_shard`,
+    idempotent by shard id) and immediately emit its process task — the
+    same id / size / ``store://`` payload :func:`segment_tasks_from_store`
+    would produce, so processing starts while later shards are still
+    building.
+    Stateless: the manifest on disk IS the commit ledger, and a kill
+    between manifest append and manager checkpoint just re-commits
+    (no-op) on the re-run.
+    """
+
+    def __init__(self, store_dir: str, target_points: int):
+        self.store_dir = store_dir
+        self.target_points = target_points
+
+    def feed(self, task: Task, result) -> list[Task]:
+        if result is None:
+            # DONE without a result doc (e.g. resumed completion whose
+            # records died with a worker): shard builds are
+            # deterministic and atomically committed — redo it here.
+            result = store_writer.ShardBuilder(self.store_dir)(task)
+        rec = store_writer.commit_shard(self.store_dir, result,
+                                        target_points=self.target_points)
+        return [Task(task_id=f"store/{rec.shard_id}",
+                     size_bytes=rec.n_points * _STORE_BYTES_PER_POINT,
+                     payload=make_store_uri(self.store_dir,
+                                            shard=rec.shard_id))]
 
 
 def _screen_rows_for_uri(proc: SegmentProcessor, uri: str) -> list:
@@ -170,9 +308,93 @@ class ScreenWorker:
         return {"candidates": cands, "stats": stats}
 
 
+class _CellBinEmitter(EdgeEmitter):
+    """process -> screen streaming edge: admit screen cells as upstream
+    shards commit.
+
+    Each completed process task covers one committed store shard; the
+    emitter re-derives that shard's ScreenRows from the store (never
+    from the in-flight result object, so live runs, sim runs, and
+    post-checkpoint resumes all emit identical tasks), bins them into
+    the halo-padded spatial hash, and — whenever a cell holds >= 2 rows
+    with unscreened members — cuts a *generation* task
+    ``screen/<cell>/g<n>`` carrying the cell's full membership plus the
+    newly-arrived rows.  Workers screen only pairs touching a new row,
+    so the union over generations is exactly the barrier run's pair set
+    (each track lives in exactly one shard, so a row arrives once).
+    ``cpu_cost_hint`` uses the incremental quadratic cost
+    :func:`repro_torch.geometry.gridhash.cell_cost`, giving sized_lpt /
+    adaptive_chunk real occupancy skew to schedule against.
+
+    The emitter runs in the manager, on the workflow's device and kernel
+    backend, so it bins by the same resampled positions the screen
+    workers derive (a row near a cell edge lands in the same cell).  Its
+    SegmentProcessor is built at the first ``feed``: a fresh run touches
+    the card in the parent only after the transport has started its
+    workers.  ``state()`` is plain JSON.
+    """
+
+    def __init__(self, store_dir: str, grid: GridSpec,
+                 config: ScreenConfig, *, device: str,
+                 backend: str = "kernel", pipeline: str = "fused"):
+        self.store_dir = store_dir
+        self.grid = grid
+        self.config = config
+        self.device = device
+        self.backend = backend
+        self.pipeline = pipeline
+        self.members: dict[str, list[str]] = {}   # cell -> all row ids
+        self.pending: dict[str, list[str]] = {}   # cell -> unscreened ids
+        self.gen: dict[str, int] = {}             # cell -> generations cut
+        self._proc: Optional[SegmentProcessor] = None
+
+    def _processor(self) -> SegmentProcessor:
+        if self._proc is None:
+            self._proc = SegmentProcessor(
+                dem=SyntheticGlobeDEM(),
+                aerodromes=synthetic_aerodromes(n=64),
+                device=self.device, backend=self.backend,
+                pipeline=self.pipeline)
+        return self._proc
+
+    def feed(self, task: Task, result) -> list[Task]:
+        rows = _screen_rows_for_uri(self._processor(), task.payload)
+        bins = bin_screen_rows(rows, grid=self.grid, config=self.config)
+        out: list[Task] = []
+        for key in sorted(bins):
+            cid = cell_id(key)
+            arrived = sorted(bins[key])
+            self.members.setdefault(cid, []).extend(arrived)
+            self.pending.setdefault(cid, []).extend(arrived)
+            if len(self.members[cid]) < 2 or not self.pending[cid]:
+                continue
+            g = self.gen.get(cid, 0) + 1
+            self.gen[cid] = g
+            all_ids = sorted(self.members[cid])
+            new_ids = sorted(self.pending[cid])
+            self.pending[cid] = []
+            out.append(Task(
+                task_id=f"screen/{cid}/g{g}",
+                size_bytes=len(all_ids) * SCREEN_ROW_BYTES,
+                payload=json.dumps({"cell": cid, "all": all_ids,
+                                    "new": new_ids}, sort_keys=True),
+                cpu_cost_hint=cell_cost(len(all_ids), len(new_ids))))
+        return out
+
+    def state(self) -> dict:
+        return {"members": self.members, "pending": self.pending,
+                "gen": self.gen}
+
+    def restore(self, state: dict) -> None:
+        self.members = {k: list(v) for k, v in state["members"].items()}
+        self.pending = {k: list(v) for k, v in state["pending"].items()}
+        self.gen = {k: int(v) for k, v in state["gen"].items()}
+
+
 class TrackWorkflow:
     """organize -> archive [-> store-build] -> process [-> screen] with
-    self-scheduling + checkpoints."""
+    self-scheduling + checkpoints, as barrier phases or one streaming
+    DAG (``mode``)."""
 
     def __init__(self, root: str, n_workers: int = 8,
                  organization: str = "largest_first",
@@ -186,6 +408,8 @@ class TrackWorkflow:
                  triple: Optional[TriplesConfig] = None,
                  input: str = "zip",
                  store_target_points: Optional[int] = None,
+                 mode: str = "barrier",
+                 n_manager_shards: int = 1,
                  screen: bool = False,
                  screen_h_m: float = 926.0,
                  screen_v_m: float = 152.4,
@@ -202,6 +426,12 @@ class TrackWorkflow:
             raise ValueError(f"unknown input {input!r}; 'zip' processes "
                              f"archives directly, 'store' inserts a "
                              f"store-build phase")
+        if mode not in ("barrier", "dag"):
+            raise ValueError(f"unknown pipeline mode {mode!r}; 'barrier' "
+                             f"runs the phases sequentially, 'dag' "
+                             f"streams tasks between them")
+        if n_manager_shards < 1:
+            raise ValueError("n_manager_shards must be >= 1")
         if screen and input != "store":
             raise ValueError("--screen needs --input store: screening "
                              "re-reads segment rows from the columnar "
@@ -210,9 +440,12 @@ class TrackWorkflow:
         if policy not in POLICY_NAMES:
             raise ValueError(f"unknown scheduling policy {policy!r}; "
                              f"choose from {list(POLICY_NAMES)}")
-        if elastic and exec_backend != "threads":
-            raise ValueError("--elastic needs exec_backend='threads' "
-                             "(processes cannot spawn workers mid-run)")
+        if elastic:
+            if exec_backend != "threads":
+                raise ValueError("--elastic needs exec_backend='threads' "
+                                 "(processes cannot spawn workers mid-run)")
+            if n_manager_shards > 1:
+                raise ValueError("--elastic needs n_manager_shards=1")
         self.device = ops.resolve_device(device)
         self.root = root
         self.raw_dir = os.path.join(root, "raw")
@@ -221,6 +454,8 @@ class TrackWorkflow:
         self.store_dir = os.path.join(root, "store")
         self.input = input
         self.store_target_points = store_target_points
+        self.mode = mode
+        self.n_manager_shards = n_manager_shards
         self.ckpt_path = os.path.join(root, "workflow_ckpt.json")
         self.screen = screen
         self.screen_grid = GridSpec(cell_deg=screen_cell_deg)
@@ -407,7 +642,226 @@ class TrackWorkflow:
             self._save_ckpt(state)
         self._write_candidates(cands)
 
+    def _run_dag(self) -> None:
+        """Streaming-DAG pipeline (``mode='dag'``): one coordinator, no
+        phase barriers — archive completions cut shard plans, shard
+        commits emit process tasks (see the emitters above).  The DAG
+        frontier rides the same workflow checkpoint as the barrier
+        phases, so a mid-stream kill resumes mid-stream."""
+        state = self._load_ckpt()
+        ck = None
+        if state.get("manager") and state.get("manager_phase") == "dag":
+            ck = ManagerCheckpoint.loads(state["manager"])
+
+        # Phases a previous run (barrier OR dag) already completed stay
+        # done: re-running the append-mode Organizer over an organized
+        # tree would double every track, so completed phases are simply
+        # absent from the node graph.
+        done = set(state["phases_done"])
+        if self.input == "store" and "store-build" in done and \
+                not os.path.exists(os.path.join(self.store_dir,
+                                                MANIFEST_NAME)):
+            done.discard("store-build")
+        if self.screen and "screen" in done and \
+                not os.path.exists(self.candidates_path):
+            done.discard("screen")
+        run_organize = "organize" not in done
+        run_archive = "archive" not in done
+        run_store = self.input == "store" and "store-build" not in done
+        run_process = "process" not in done
+        run_screen = self.screen and "screen" not in done
+
+        target = (self.store_target_points
+                  or store_writer.DEFAULT_TARGET_POINTS)
+        dag = StreamingDAG()
+        if run_organize:
+            dag.add_node("organize",
+                         fn=Organizer(self.organized_dir, self.registry),
+                         tasks=organize_tasks_from_dir(self.raw_dir))
+        if run_archive:
+            arch = Archiver(self.organized_dir, self.archive_dir)
+            if run_organize:
+                dag.add_node("archive", fn=arch)
+                # Barrier edge: archive-task discovery scans the
+                # organized tree, which is only final once every
+                # organize task has landed.
+                dag.add_edge("organize", "archive",
+                             on_complete=lambda: archive_tasks_from_tree(
+                                 self.organized_dir))
+            else:
+                dag.add_node("archive", fn=arch,
+                             tasks=archive_tasks_from_tree(
+                                 self.organized_dir))
+        if run_process:
+            process_tasks = None
+            if not run_store and not run_archive:
+                process_tasks = (
+                    segment_tasks_from_store(self.store_dir,
+                                             granularity="shard")
+                    if self.input == "store" else
+                    segment_tasks_from_archive_tree(self.archive_dir))
+            # The process node keeps the DAG's organization (the barrier
+            # phase dispatches it under "random"), so per-worker launch
+            # shapes differ from a barrier run's; results do not.
+            dag.add_node("process", fn=SegmentProcessor(
+                dem=SyntheticGlobeDEM(),
+                aerodromes=synthetic_aerodromes(n=64),
+                device=self.device, backend=self.backend,
+                pipeline=self.pipeline),
+                tasks=process_tasks)
+        store_tasks = None
+        if run_store:
+            if run_archive:
+                dag.add_node("store-build",
+                             fn=store_writer.ShardBuilder(self.store_dir))
+                dag.add_edge("archive", "store-build",
+                             emitter=_ShardPlanEmitter(self.archive_dir,
+                                                       target))
+            else:
+                # Archives already on disk — plan the shards up front,
+                # exactly like the barrier store-build phase.
+                sources = store_writer.discover_sources(self.archive_dir)
+                sizes = {tid: size for tid, _p, size in sources}
+                plans = store_writer.plan_shards(sources,
+                                                 target_points=target)
+                store_tasks = [
+                    Task(task_id=f"store/{p.shard_id}",
+                         size_bytes=sum(sizes[t] for t, _ in p.sources),
+                         payload=p.dumps())
+                    for p in plans]
+                dag.add_node(
+                    "store-build",
+                    fn=store_writer.ShardBuilder(self.store_dir),
+                    tasks=store_tasks)
+            if run_process:
+                dag.add_edge("store-build", "process",
+                             emitter=_ShardCommitEmitter(self.store_dir,
+                                                         target))
+        screen_tasks = None
+        screen_emitter = None
+        if run_screen:
+            if run_process:
+                # Streaming edge: cells admit generations as the shards
+                # feeding them commit and process.
+                screen_emitter = _CellBinEmitter(
+                    self.store_dir, self.screen_grid, self.screen_config,
+                    device=str(self.device), backend=self.backend,
+                    pipeline=self.pipeline)
+                dag.add_node("screen", fn=self._screen_worker())
+                dag.add_edge("process", "screen", emitter=screen_emitter)
+            else:
+                # Store already processed by a prior run: plan the cells
+                # up front, exactly like the barrier screen phase (on the
+                # card in the parent, so processes workers are spawned).
+                screen_tasks = self._screen_tasks_full()
+                dag.add_node("screen", fn=self._screen_worker(),
+                             tasks=screen_tasks)
+        if self.input != "store" and run_process and run_archive:
+            archive_root = self.archive_dir
+
+            def zip_process_task(task: Task, result) -> list[Task]:
+                # 1:1 expansion matching segment_tasks_from_archive_tree.
+                rel = f"{task.task_id}.zip"
+                path = os.path.join(archive_root, rel)
+                size = getattr(result, "bytes_out", None)
+                if size is None:
+                    size = (os.path.getsize(path)
+                            if os.path.exists(path) else task.size_bytes)
+                return [Task(task_id=rel, size_bytes=int(size),
+                             payload=path)]
+
+            dag.add_edge("archive", "process", expand=zip_process_task)
+
+        if not dag.nodes:
+            state["phases_done"].append("dag")
+            self._save_ckpt(state)
+            return
+
+        def save_mid_stream(c: ManagerCheckpoint) -> None:
+            mid = dict(state)
+            mid["manager"] = c.dumps()
+            mid["manager_phase"] = "dag"
+            self._save_ckpt(mid)
+
+        result = run_dag(
+            dag,
+            backend=self.exec_backend,
+            n_workers=self.n_workers,
+            n_manager_shards=self.n_manager_shards,
+            organization=self.organization,
+            tasks_per_message=self.tasks_per_message,
+            policy=self.policy,
+            poll_interval=self.poll_interval,
+            checkpoint=ck,
+            on_checkpoint=save_mid_stream,
+            checkpoint_interval_s=self.checkpoint_interval_s,
+            speculative=self.speculative,
+            elastic=self.elastic)
+        if run_store:
+            if store_tasks is not None:
+                # No process edge to stream commits through (a prior run
+                # already processed): commit the built shards here.
+                # commit_shard is idempotent, and builds completed before
+                # a checkpoint kill are deterministic — just redo them.
+                builder = store_writer.ShardBuilder(self.store_dir)
+                docs = result.node_results.get("store-build", {})
+                for task in store_tasks:
+                    doc = docs.get(task.task_id)
+                    if doc is None:
+                        doc = builder(task)
+                    store_writer.commit_shard(self.store_dir, doc,
+                                              target_points=target)
+            # Seal the incrementally-committed manifest; byte-identical
+            # to the barrier build's finalize_store output.
+            store_writer.finalize_manifest(
+                self.store_dir, target_points=target,
+                meta={"source_root": os.path.abspath(self.archive_dir)})
+        if run_screen:
+            worker = self._screen_worker()
+            docs = result.node_results.get("screen", {})
+            by_id = {t.task_id: t for t in (screen_tasks or [])}
+            cands: list = []
+            for tid in sorted(result.node_completed.get("screen", [])):
+                doc = docs.get(tid)
+                if doc is None:
+                    # Completed before a checkpoint kill: rebuild the
+                    # task and screen it here, in the parent, on the
+                    # workflow's device.  Emitter-cut generations
+                    # rebuild from the (restored + re-fed) full cell
+                    # membership — a superset of the lost generation's
+                    # pairs, which the canonical dedup collapses back
+                    # exactly.
+                    task = by_id.get(tid)
+                    if task is None:
+                        cid = tid.split("/")[1]
+                        ids = sorted(screen_emitter.members.get(cid, []))
+                        task = Task(task_id=tid,
+                                    payload=json.dumps(
+                                        {"cell": cid, "all": ids,
+                                         "new": ids}, sort_keys=True))
+                    doc = worker(task)
+                cands.extend(doc["candidates"])
+            self._write_candidates(cands)
+        # Node names double as the barrier-phase names: record them so
+        # switching back to mode="barrier" later never re-runs them.
+        state["phases_done"].extend(dag.nodes)
+        state["phases_done"].append("dag")
+        state["manager"] = None
+        state["manager_phase"] = None
+        self._save_ckpt(state)
+        n_tasks = sum(len(c) for c in result.node_completed.values())
+        self.reports.append(PhaseReport(
+            phase="dag", job_seconds=result.job_seconds, tasks=n_tasks,
+            workers=self.n_workers, messages=result.run.messages_sent))
+
     def run(self) -> list[PhaseReport]:
+        if self.mode == "dag":
+            done = set(self._load_ckpt()["phases_done"])
+            if "dag" not in done or (self.screen and (
+                    "screen" not in done
+                    or not os.path.exists(self.candidates_path))):
+                self._run_dag()
+            return self.reports
         done = set(self._load_ckpt()["phases_done"])
         if self.input == "store" and "store-build" in done and \
                 not os.path.exists(os.path.join(self.store_dir,
@@ -476,6 +930,17 @@ def main(argv=None) -> None:
                     help="scheduling policy for every self-scheduled "
                          "phase (static | fifo_selfsched | sized_lpt | "
                          "adaptive_chunk | shard_affinity)")
+    ap.add_argument("--pipeline", default="barrier",
+                    choices=["barrier", "dag"],
+                    help="phase pipelining: 'barrier' runs organize/"
+                         "archive/store-build/process/screen as sequential "
+                         "self-scheduled phases; 'dag' streams tasks "
+                         "between phases as dependencies resolve "
+                         "(run_dag)")
+    ap.add_argument("--manager-shards", type=int, default=1,
+                    help="coordinator shards for --pipeline dag (>1 "
+                         "splits the pending queue by locality and "
+                         "work-steals at the tail)")
     ap.add_argument("--kernel-pipeline", default="fused",
                     choices=["fused", "unfused"],
                     help="segment hot path: fused device-resident "
@@ -507,21 +972,19 @@ def main(argv=None) -> None:
                          "360)")
     # Reference modes that later slices bring; accepted only to be
     # rejected with the slice's name.
-    ap.add_argument("--pipeline", default="barrier",
-                    choices=["barrier", "dag"],
-                    help="not ported yet: " + NOT_PORTED["--pipeline dag"])
     ap.add_argument("--serve", action="store_true",
                     help="not ported yet: " + NOT_PORTED["--serve"])
     ap.add_argument("--trace", default=None, metavar="DIR",
                     help="not ported yet: " + NOT_PORTED["--trace"])
     args = ap.parse_args(argv)
 
-    asked = {"--pipeline dag": args.pipeline == "dag",
-             "--serve": args.serve, "--trace": args.trace is not None}
+    asked = {"--serve": args.serve, "--trace": args.trace is not None}
     for flag, on in asked.items():
         if on:
             ap.error(f"{flag} is not ported yet: it waits for "
                      f"{NOT_PORTED[flag]}")
+    if args.manager_shards < 1:
+        ap.error("--manager-shards must be >= 1")
 
     triple = None
     if args.nodes is not None:
@@ -534,6 +997,8 @@ def main(argv=None) -> None:
                        poll_interval=0.005, triple=triple,
                        input=args.input,
                        store_target_points=args.store_target_points,
+                       mode=args.pipeline,
+                       n_manager_shards=args.manager_shards,
                        screen=args.screen,
                        screen_h_m=args.screen_h_m,
                        screen_v_m=args.screen_v_m,

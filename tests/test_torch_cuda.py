@@ -606,6 +606,128 @@ def test_screen_workflow_processes_spawns_workers_onto_card(dev, tmp_path):
     assert doc["got"] == doc["want"] and doc["got"]
 
 
+# The streaming DAG on the card, in fresh interpreters: ``fresh`` runs
+# the store + screen workflow as one DAG at <base>/run and moves it to
+# <base>/dag, ``kill`` runs it until a mid-stream checkpoint holds both
+# completed and outstanding screen cells and dies there, ``resume``
+# finishes that run and moves it to <base>/dag, ``barrier`` runs the
+# barrier phases (threads) and moves them to <base>/barrier.  Every run
+# whose store is compared runs at the same path (the manifest records
+# the archive root).  The script prints, for each transport built, the
+# start method it chose and whether the parent had started CUDA by then,
+# and the DAG's tasks done by workers.
+_DAG_SCRIPT = r"""
+import json, os, sys, torch
+from repro_torch.runtime import ManagerCheckpoint, transports
+import repro_torch.tracks.workflow as wfm
+base, action, backend = sys.argv[1], sys.argv[2], sys.argv[3]
+root = os.path.join(base, "run")
+kw = dict(input="store", store_target_points=2048, screen=True,
+          screen_h_m=50_000.0, screen_v_m=1000.0, screen_cell_deg=1.0,
+          n_workers=4, poll_interval=0.003, device="cuda")
+built = []
+init = transports.ProcessTransport.__init__
+def spy(self, *a, **k):
+    built.append([torch.cuda.is_initialized()])
+    init(self, *a, **k)
+    built[-1].append(self._ctx.get_start_method())
+transports.ProcessTransport.__init__ = spy
+done_by_workers = []
+real_run_dag = wfm.run_dag
+def run_dag(*a, **k):
+    res = real_run_dag(*a, **k)
+    done_by_workers.append(sum(s.tasks_completed
+                               for s in res.run.worker_stats.values()))
+    return res
+wfm.run_dag = run_dag
+class Killed(RuntimeError):
+    pass
+class KilledMidScreen(wfm.TrackWorkflow):
+    def _save_ckpt(self, state):
+        super()._save_ckpt(state)
+        if state.get("manager_phase") != "dag" or not state.get("manager"):
+            return
+        screen = ManagerCheckpoint.loads(
+            state["manager"]).frontier["nodes"].get("screen", {})
+        if screen.get("completed") and screen.get("outstanding"):
+            raise Killed()
+mode = "barrier" if action == "barrier" else "dag"
+ex = "threads" if action == "barrier" else backend
+cls = KilledMidScreen if action == "kill" else wfm.TrackWorkflow
+wf = cls(root, mode=mode, exec_backend=ex, checkpoint_interval_s=0.01, **kw)
+if action in ("fresh", "kill", "barrier"):
+    wf.generate_raw(n_files=1, scale=1e3)
+killed = False
+try:
+    phases = [r.phase for r in wf.run()]
+except Killed:
+    killed, phases = True, []
+if not killed:
+    os.rename(root, os.path.join(base, "barrier" if mode == "barrier"
+                                 else "dag"))
+print(json.dumps({"phases": phases, "killed": killed, "built": built,
+                  "done_by_workers": done_by_workers}))
+"""
+
+
+def _dag_step(base, action: str, backend: str = "threads") -> dict:
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    out = subprocess.run([sys.executable, "-c", _DAG_SCRIPT, str(base),
+                          action, backend], capture_output=True, text=True,
+                         env=env, timeout=400)
+    assert out.returncode == 0, out.stderr[-4000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def _tree(root) -> dict:
+    out = {}
+    for d, _dirs, files in os.walk(root):
+        for f in files:
+            with open(os.path.join(d, f), "rb") as fh:
+                out[os.path.relpath(os.path.join(d, f), root)] = fh.read()
+    return out
+
+
+def _same_as_barrier(base) -> None:
+    dag, barrier = _tree(base / "dag"), _tree(base / "barrier")
+    assert dag["candidates.json"] == barrier["candidates.json"]
+    assert json.loads(dag["candidates.json"])["candidates"]
+    store = {k: v for k, v in barrier.items() if k.startswith("store")}
+    assert len(store) >= 3
+    assert {k: v for k, v in dag.items() if k.startswith("store")} == store
+
+
+@pytest.mark.parametrize("backend", ["threads", "processes"])
+def test_dag_screen_workflow_on_card_matches_barrier(dev, tmp_path, backend):
+    # The DAG first, in a fresh interpreter: on a fresh run nothing
+    # starts CUDA in the parent before the transport has forked its
+    # workers (the cell-bin emitter first touches the card mid-run).
+    doc = _dag_step(tmp_path, "fresh", backend)
+    assert doc["phases"] == ["dag"]
+    if backend == "processes":
+        assert doc["built"] == [[False, "fork"]]
+        assert doc["done_by_workers"][0] > 0
+    assert _dag_step(tmp_path, "barrier")["phases"] == [
+        "organize", "archive", "store-build", "process", "screen"]
+    _same_as_barrier(tmp_path)
+
+
+def test_dag_processes_resume_on_card_matches_barrier(dev, tmp_path):
+    killed = _dag_step(tmp_path, "kill", "processes")
+    assert killed["killed"] and killed["built"] == [[False, "fork"]]
+    # The resumed run restores the frontier and the emitters' state
+    # without the card, forks its workers, which finish the outstanding
+    # cells, and rebuilds the lost cells' results on the card.
+    resumed = _dag_step(tmp_path, "resume", "processes")
+    assert resumed["phases"] == ["dag"] and not resumed["killed"]
+    assert resumed["built"] == [[False, "fork"]]
+    assert resumed["done_by_workers"][0] > 0
+    _dag_step(tmp_path, "barrier")
+    _same_as_barrier(tmp_path)
+
+
 # ---------------------------------------------------------------------------
 # Flash attention and the LM path
 # ---------------------------------------------------------------------------

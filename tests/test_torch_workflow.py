@@ -15,6 +15,7 @@ import sys
 import pytest
 
 from repro.core.messages import Task as JaxTask
+from repro.runtime import BACKENDS as JAX_BACKENDS
 from repro.runtime import run_job as jax_run_job
 from repro.tracks.datasets import ScaledDatasetSpec as JaxSpec
 from repro.tracks.datasets import write_scaled_dataset as jax_write
@@ -36,10 +37,10 @@ def _tasks(cls, n=40):
             for i in range(n)]
 
 
-def test_backends_are_the_live_ones():
-    assert BACKENDS == ("threads", "processes")
+def test_backends_match_reference():
+    assert BACKENDS == JAX_BACKENDS == ("threads", "processes", "sim")
     with pytest.raises(ValueError, match="unknown backend"):
-        run_job(_tasks(Task), _square, backend="sim")
+        run_job(_tasks(Task), _square, backend="mpi")
 
 
 @pytest.mark.parametrize("policy,organization,tpm", [
@@ -94,6 +95,18 @@ sw.generate_raw(n_files=1, scale=1e3)
 screen_reports = sw.run()
 with open(sw.candidates_path) as f:
     n_candidates = len(json.load(f)["candidates"])
+# The same as one streaming DAG, and a sim job on a manifest.
+dw = TrackWorkflow(root + "/dag", input="store", store_target_points=2048,
+                   screen=True, screen_h_m=50_000.0, screen_v_m=1000.0,
+                   screen_cell_deg=1.0, mode="dag", **kw)
+dw.generate_raw(n_files=1, scale=1e3)
+dag_reports = dw.run()
+with open(dw.candidates_path, "rb") as f, open(sw.candidates_path, "rb") as g:
+    dag_same = f.read() == g.read()
+from repro_torch.runtime import run_job
+from repro_torch.tracks.datasets import get_manifest
+sim = run_job(get_manifest("heavy_tail", limit=200), None, backend="sim",
+              n_workers=8, policy="sized_lpt")
 print(json.dumps({
     "phases": [r.phase for r in reports],
     "process_tasks": reports[-1].tasks,
@@ -101,6 +114,9 @@ print(json.dumps({
     "screen_phases": [r.phase for r in screen_reports],
     "screen_tasks": screen_reports[-1].tasks,
     "candidates": n_candidates,
+    "dag_phases": [r.phase for r in dag_reports],
+    "dag_same": dag_same,
+    "sim_tasks": len(sim.completed_ids),
     "foreign": sorted(m for m in sys.modules
                       if m == "jax" or m.startswith(("jax.", "repro.")))
                       + (["repro"] if "repro" in sys.modules else []),
@@ -121,4 +137,6 @@ def test_port_workflow_runs_without_jax(tmp_path, backend):
     assert doc["screen_phases"] == ["organize", "archive", "store-build",
                                     "process", "screen"]
     assert doc["screen_tasks"] > 0 and doc["candidates"] > 0
+    assert doc["dag_phases"] == ["dag"] and doc["dag_same"]
+    assert doc["sim_tasks"] == 200
     assert doc["foreign"] == []
