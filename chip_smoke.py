@@ -61,15 +61,31 @@ Phases, each printed as it runs:
              floors.
 5b. dag    — the same workflow as one streaming DAG (mode="dag"): phase
              5's data and settings, at phase 5's root (moved aside),
-             with the four launch counters zeroed just before and read
-             just after; its store/ tree and candidates.json held byte
-             for byte against phase 5's, its job_seconds printed beside
-             the barrier run's phase seconds, its launches by shape (the
-             cell-bin emitter's re-derivation in the manager thread
-             included, then replayed alone) and its screen stats; then
-             a small DAG (1 raw file at scale 1/1000, 2048 points a
-             shard, 4 processes workers, 2 manager shards) held byte for
-             byte against a barrier run of the same data on the card.
+             traced (``repro_torch.obs.Tracer``), with the four launch
+             counters zeroed just before and read just after; its
+             store/ tree and candidates.json held byte for byte against
+             phase 5's untraced barrier run, its job_seconds printed
+             beside the barrier run's phase seconds, its launches by
+             shape (the cell-bin emitter's re-derivation in the manager
+             thread included, then replayed alone) and its screen stats.
+             The trace: no event dropped, the span-ledger invariants of
+             tests/test_obs.py against the DAG's completed ids, written
+             outside the root with ``write_trace_files``, read back
+             through ``from_chrome_trace`` to the same event count, and
+             reported by ``repro_torch.obs.report``; printed are its
+             event count, makespan and critical path beside job_seconds,
+             and per DAG node its tasks, busy time, critical path, exec
+             p50/p99 and stragglers.  Then a small DAG (1 raw file at
+             scale 1/1000, 2048 points a shard, 4 processes workers, 2
+             manager shards) held byte for byte against a barrier run of
+             the same data on the card.
+5c. trace  — the tracer's host cost: 10^6 ``emit`` calls and 10^6 raw
+             appends timed on a fresh Tracer, and phase 5b's event count
+             times the emit cost beside its job_seconds (printed, not
+             gated); then ``python -m repro_torch.tracks.workflow
+             --files 1 --scale 1000 --trace DIR`` in a fresh interpreter
+             on the card, which must exit 0, print its ``trace:`` line
+             and write both files.
 6. flash   — the flash-attention kernels against their plain version at
              the six shapes of tests/test_flash_attention.py in f32
              (rtol/atol 2e-5), its bf16 case, stablelm-12b's heads (B =
@@ -1117,8 +1133,10 @@ def phase_dag(barrier: dict) -> tuple[dict, dict]:
     barrier run; then a small DAG on 4 processes workers and 2 manager
     shards against a barrier run of the same data."""
     import torch
+    import repro_torch.tracks.workflow as workflow_mod
     from repro_torch.kernels import agl_lookup, dynamic_rates, ops
     from repro_torch.kernels import encounter_screen, track_interp
+    from repro_torch.obs import Tracer
     from repro_torch.tracks.segments import segment_tasks_from_store
     from repro_torch.tracks.workflow import TrackWorkflow, _CellBinEmitter
 
@@ -1127,22 +1145,35 @@ def phase_dag(barrier: dict) -> tuple[dict, dict]:
     shutil.rmtree(barrier_root, ignore_errors=True)
     os.rename(root, barrier_root)
     want = tree_bytes(barrier_root)
+    tracer = Tracer()
     wf = TrackWorkflow(root, n_workers=8, tasks_per_message=4,
                        poll_interval=0.005, device="cuda", input="store",
                        store_target_points=8192, screen=True, mode="dag",
-                       **SCREEN_WF)
+                       tracer=tracer, **SCREEN_WF)
     wf.generate_raw(n_files=8, scale=500)
     mods = {"track_interp": track_interp, "agl_lookup": agl_lookup,
             "dynamic_rates": dynamic_rates,
             "encounter_screen": encounter_screen}
+    # The workflow keeps no DagResult; catch it for the ledger check.
+    dag_results = []
+    run_dag = workflow_mod.run_dag
+
+    def run_dag_kept(*args, **kwargs):
+        dag_results.append(run_dag(*args, **kwargs))
+        return dag_results[-1]
+
     zero_counters(mods)
     encounter_screen.launches_by_shape.clear()
     ops.reset_pipeline_stats()
     encounter_screen.reset_screen_stats()
-    t0 = time.perf_counter()
-    reports = wf.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    workflow_mod.run_dag = run_dag_kept
+    try:
+        t0 = time.perf_counter()
+        reports = wf.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        workflow_mod.run_dag = run_dag
     launches = {name: mod.launches for name, mod in mods.items()}
     shapes = snapshot_shapes(mods)
     by_shape = dict(sorted(encounter_screen.launches_by_shape.items()))
@@ -1161,8 +1192,9 @@ def phase_dag(barrier: dict) -> tuple[dict, dict]:
                + ", ".join(f"{k} {v:.3f}s"
                            for k, v in barrier["phase_seconds"].items()))
     say("dag", f"store/ ({len([k for k in want if k.startswith('store')])} "
-               f"files) and candidates.json byte-identical to the barrier "
-               f"run's")
+               f"files) and candidates.json of the traced DAG "
+               f"byte-identical to the untraced barrier run's")
+    check_dag_trace(tracer, dag_results, r.job_seconds)
     say("dag", f"screen stats {sstats} (barrier: {barrier['stats']}); "
                f"launches {launches}, the cell-bin emitter's re-derivation "
                f"in the manager thread included; pipeline stats {stats}")
@@ -1223,7 +1255,154 @@ def phase_dag(barrier: dict) -> tuple[dict, dict]:
     say("dag", f"small DAG: store/ and candidates.json ({n} candidates) "
                f"byte-identical to the barrier run's")
     shutil.rmtree(barrier_root)
-    return launches, shapes
+    return launches, shapes, {"n_events": len(tracer),
+                              "job_seconds": r.job_seconds}
+
+
+def ledger_invariants(events, completed_ids) -> None:
+    """tests/test_obs.py's span-ledger invariants: one exec span and one
+    done instant per completed task and none for anything else, every
+    requeued task that finished re-assigned after its requeue, and no
+    two exec spans of one worker overlapping."""
+    completed = sorted(completed_ids)
+    execs = [e for e in events if e[2] == "exec"]
+    if sorted(e[5] for e in execs) != completed:
+        raise AssertionError("exec spans are not one per completed task")
+    if sorted(e[5] for e in events if e[2] == "done") != completed:
+        raise AssertionError("done instants are not one per completed "
+                             "task")
+    last_assigned, last_requeued = {}, {}
+    for i, e in enumerate(events):
+        if e[2] == "assigned":
+            last_assigned[e[5]] = i
+        elif e[2] == "requeued":
+            last_requeued[e[5]] = i
+    done = set(completed)
+    for tid, i in last_requeued.items():
+        if tid in done and last_assigned.get(tid, -1) < i:
+            raise AssertionError(f"{tid} finished but was not re-assigned "
+                                 f"after its requeue")
+    by_worker = {}
+    for e in execs:
+        by_worker.setdefault(str(e[4]), []).append(e)
+    for worker, spans in by_worker.items():
+        spans.sort(key=lambda e: e[0])
+        for prev, nxt in zip(spans, spans[1:]):
+            if nxt[0] < prev[0] + prev[1] - 1e-9:
+                raise AssertionError(f"worker {worker}: exec spans overlap")
+
+
+def check_dag_trace(tracer, dag_results, job_seconds: float) -> None:
+    """Phase 5b's trace: complete, true to the DAG's ledger, exported,
+    read back and reported; prints the per-node split."""
+    import contextlib
+    import io
+
+    from repro_torch.obs import (
+        build_summary, from_chrome_trace, phase_of, write_trace_files)
+    from repro_torch.obs.report import main as report_main
+
+    t0 = time.perf_counter()
+    if tracer.dropped != 0:
+        raise AssertionError(f"the trace dropped {tracer.dropped} events")
+    if len(dag_results) != 1:
+        raise AssertionError(f"{len(dag_results)} run_dag calls, not 1")
+    events = tracer.events
+    ledger_invariants(events, dag_results[0].run.completed_ids)
+    out = WORK + "_trace"
+    shutil.rmtree(out, ignore_errors=True)
+    paths = write_trace_files(tracer, out, label="dag")
+    with open(paths["trace"]) as f:
+        back = from_chrome_trace(json.load(f))
+    if len(back) != len(events):
+        raise AssertionError(f"trace.json read back {len(back)} events, "
+                             f"the tracer held {len(events)}")
+    report = io.StringIO()
+    with contextlib.redirect_stdout(report):
+        rc = report_main([paths["summary"]])
+    if rc != 0:
+        raise AssertionError(f"repro_torch.obs.report exited {rc}")
+    for line in report.getvalue().splitlines():
+        say("dag", f"report | {line}")
+    with open(paths["summary"]) as f:
+        summary = json.load(f)
+    m = summary["scenario"]["metrics"]
+    say("dag", f"trace: {len(events)} events, 0 dropped, ledger "
+               f"invariants hold over {len(dag_results[0].run.completed_ids)}"
+               f" completed tasks, trace.json read back to "
+               f"{len(back)} events (checked, exported, read back and "
+               f"reported in {time.perf_counter() - t0:.3f}s); makespan_s "
+               f"{m['makespan_s']:.6f}, critical_path_s "
+               f"{m['critical_path_s']:.6f} beside job_seconds "
+               f"{job_seconds:.6f}")
+    by_node = {}
+    for e in events:
+        by_node.setdefault(phase_of(e[5]), []).append(e)
+    for node, phase in sorted(summary["phases"].items()):
+        nm = build_summary(by_node[node])["scenario"]["metrics"]
+        say("dag", f"node {node:11s}: n_tasks {phase['n_tasks']}, busy_s "
+                   f"{phase['busy_s']:.6f}, critical_path_s "
+                   f"{phase['critical_path_s']:.6f}, exec p50 "
+                   f"{nm['exec_p50_s']:.6f} s p99 {nm['exec_p99_s']:.6f} s, "
+                   f"straggler_count {nm['straggler_count']}")
+
+
+def phase_trace(dag_trace: dict) -> None:
+    """The tracer's host cost per event, and --trace as a user runs it."""
+    from repro_torch.obs import INSTANT, Tracer
+
+    t_phase = time.perf_counter()
+    n = 1_000_000
+    tracer = Tracer(capacity=n)
+    emit = tracer.emit
+    t0 = time.perf_counter()
+    for i in range(n):
+        emit(0.0, INSTANT, "done", "task", 0, "t", None)
+    emit_us = (time.perf_counter() - t0) / n * 1e6
+    tracer.clear()
+    raw = tracer.raw
+    event = (0.0, INSTANT, "done", "task", 0, "t", None)
+    t0 = time.perf_counter()
+    for i in range(n):
+        raw(event)
+    tracer.emitted += n
+    raw_us = (time.perf_counter() - t0) / n * 1e6
+    if len(tracer) != n or tracer.dropped != 0:
+        raise AssertionError("the raw appends were not all kept")
+    host_s = dag_trace["n_events"] * emit_us * 1e-6
+    say("trace", f"emit {emit_us:.4f} us/event, raw append {raw_us:.4f} "
+                 f"us/event ({n} each); phase 5b's {dag_trace['n_events']}"
+                 f" events x emit = {host_s:.6f}s of host time beside its "
+                 f"job_seconds {dag_trace['job_seconds']:.6f} "
+                 f"({host_s / dag_trace['job_seconds'] * 100:.4f} %)")
+
+    root = WORK + "_cli"
+    out = root + "_trace"
+    for d in (root, out):
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.tracks.workflow", "--root",
+         root, "--files", "1", "--scale", "1000", "--trace", out],
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=SRC))
+    if proc.returncode != 0:
+        raise AssertionError(f"--trace run exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("trace: ")]
+    files = [os.path.join(out, f) for f in ("trace.json",
+                                            "TRACE_summary.json")]
+    if len(lines) != 1 or not all(os.path.isfile(f) for f in files):
+        wrote = os.listdir(out) if os.path.isdir(out) else []
+        raise AssertionError(f"--trace run printed {lines} and wrote "
+                             f"{wrote}")
+    say("trace", f"python -m repro_torch.tracks.workflow --files 1 --scale "
+                 f"1000 --trace: exit 0 in {time.perf_counter() - t0:.3f}s; "
+                 + "; ".join(ln.strip() for ln in proc.stdout.splitlines()))
+    for d in (root, out):
+        shutil.rmtree(d)
+    say("trace", f"phase 5c in {time.perf_counter() - t_phase:.3f}s")
 
 
 def profile_screen_tasks(wf, tasks) -> None:
@@ -1637,7 +1816,8 @@ def main() -> int:
     launches, archive_dir, zip_shapes = phase_workflow()
     phase_globe(archive_dir, globe)
     screen_launches, screen_shapes, barrier = phase_screen_workflow()
-    dag_launches, dag_shapes = phase_dag(barrier)
+    dag_launches, dag_shapes, dag_trace = phase_dag(barrier)
+    phase_trace(dag_trace)
     top_shapes = phase_workflow_shapes({"zip workflow": zip_shapes,
                                         "store+screen workflow":
                                             screen_shapes,

@@ -131,7 +131,7 @@ def run_job(tasks: Sequence[Task],
     path, so a resumed manager can re-admit the task bit-identically
     without re-running its producer.
 
-    ``tracer`` attaches a tracer object (``attach_tracer``): task lifecycle
+    ``tracer`` attaches a :class:`repro_torch.obs.Tracer`: task lifecycle
     instants and exec spans are emitted on every backend (the sim binds
     its virtual clock, so traced sim runs stay bit-reproducible and
     tracing never changes a dispatch decision).

@@ -230,8 +230,9 @@ class DagCoordinator:
     """
 
     streaming = True
-    #: Attached tracer object (None = untraced).  The drive
-    #: loop and the sim discover it via ``getattr(core, "tracer", None)``.
+    #: Attached :class:`repro_torch.obs.Tracer` (None = untraced).  The
+    #: drive loop and the sim discover it via
+    #: ``getattr(core, "tracer", None)``.
     tracer = None
 
     def __init__(self, dag: StreamingDAG, *,
@@ -338,8 +339,8 @@ class DagCoordinator:
     # -- tracing -----------------------------------------------------------
 
     def attach_tracer(self, tracer, shard: int = 0) -> None:
-        """Attach a tracer object: DAG admissions and node
-        seal/complete transitions become ``dag``-category instants, and
+        """Attach a :class:`repro_torch.obs.Tracer`: DAG admissions and
+        node seal/complete transitions become ``dag``-category instants, and
         the inner core emits the task-lifecycle events.  Attach before
         the drive loop starts (the sim attaches after binding its
         virtual clock, so instants land on simulated time)."""
@@ -715,7 +716,7 @@ def run_dag(dag: StreamingDAG, *,
     ``checkpoint`` whose ``frontier`` was produced by a previous DAG run
     resumes mid-stream: completed tasks are skipped, outstanding ones
     re-admitted, emitter state restored.  ``tracer`` attaches a
-    tracer object: task lifecycle plus ``dag``-category
+    :class:`repro_torch.obs.Tracer`: task lifecycle plus ``dag``-category
     admission and node seal/complete instants on every backend.
     """
     from repro_torch.runtime.api import BACKENDS, default_topology

@@ -243,8 +243,8 @@ class SchedulerCore:
                 speed_model.restore(rs["speed"])
             if fleet is not None and rs.get("fleet"):
                 fleet.restore(rs["fleet"])
-        #: Optional tracer object; every lifecycle decision
-        #: below emits an instant when attached (``attach_tracer``).
+        #: Optional :class:`repro_torch.obs.Tracer`; every lifecycle
+        #: decision below emits an instant when attached (``attach_tracer``).
         self.tracer = None
         self._trace_shard = 0
 

@@ -624,8 +624,8 @@ def simulate_self_scheduling(
     so decisions and clocks shard identically.  ``model_fn`` maps a task
     to its phase's cost model (streaming DAG runs); None = ``model``.
 
-    ``tracer`` threads a tracer object through the run: its
-    clock is rebound to the sim's virtual time, so simulated traces are
+    ``tracer`` threads a :class:`repro_torch.obs.Tracer` through the run:
+    its clock is rebound to the sim's virtual time, so simulated traces are
     bit-reproducible and read like live ones.
     """
     if core is None:

@@ -88,7 +88,8 @@ class TrackStore:
     def __init__(self, root: str, *,
                  manifest: Optional[StoreManifest] = None,
                  prefetch: int = 1,
-                 clock=None):
+                 clock=None,
+                 tracer=None):
         self.root = root
         self.manifest = manifest or StoreManifest.load(root)
         self.prefetch = prefetch
@@ -96,6 +97,12 @@ class TrackStore:
         #: Injectable so tests assert exact attribution instead of
         #: flaky wall-time ratios.
         self._clock = clock if clock is not None else time.perf_counter
+        #: Optional :class:`repro_torch.obs.Tracer`: shard decodes become
+        #: ``store``-category spans (track = shard id), consumer blocking
+        #: becomes ``store_wait`` spans, and prefetch handoffs become
+        #: instants.  Spans use the *tracer's* clock — not ``clock`` —
+        #: so they share one timeline with scheduler/serving events.
+        self.tracer = tracer
         #: Optional test/service instrumentation for the prefetch
         #: thread: ``{"queued": fn(kind, shard_id), "blocked": fn(kind)}``
         #: — ``queued`` fires after an event lands in the queue,
@@ -203,6 +210,8 @@ class TrackStore:
 
         rec = plan.shard
         t0 = self._clock()
+        tr = self.tracer
+        tt0 = tr.now() if tr is not None else 0.0
         path = os.path.join(self.root, rec.filename)
         cols, meta = codec.read_shard(path)
         offsets = cols["offsets"]
@@ -228,6 +237,9 @@ class TrackStore:
         self.stats["shards_read"] += 1
         self.stats["bytes_read"] += rec.size_bytes
         self.stats["decode_s"] += self._clock() - t0
+        if tr is not None:
+            tr.emit(tt0, tr.now() - tt0, "store_decode", "store",
+                    rec.shard_id, extra=rec.size_bytes)
         return ShardBatch(shard_id=rec.shard_id, track_ids=track_ids,
                           items=items)
 
@@ -352,6 +364,12 @@ class TrackStore:
                     batch = self._decode_shard(plan)
                     if not put(("ok", batch)):
                         return
+                    if self.tracer is not None:
+                        # Emitted from the prefetch thread; Tracer.emit
+                        # is a single deque append, safe cross-thread.
+                        self.tracer.emit(self.tracer.now(), -1.0,
+                                         "store_prefetch", "store",
+                                         batch.shard_id)
                 put(("end", None))
             except Exception as e:              # surfaced to the consumer
                 put(("err", e))
@@ -362,8 +380,13 @@ class TrackStore:
         try:
             while True:
                 t0 = self._clock()
+                tr = self.tracer
+                tt0 = tr.now() if tr is not None else 0.0
                 kind, val = q.get()
                 self.stats["wait_s"] += self._clock() - t0
+                if tr is not None:
+                    tr.emit(tt0, tr.now() - tt0, "store_wait", "store",
+                            "consumer")
                 if kind == "end":
                     break
                 if kind == "err":

@@ -76,7 +76,6 @@ from repro_torch.tracks.segments import (
 #: Workflow modes of the reference that later slices of the port bring.
 NOT_PORTED = {
     "--serve": "the serving slice (repro.serving)",
-    "--trace": "the observability slice (repro.obs)",
 }
 
 
@@ -417,7 +416,8 @@ class TrackWorkflow:
                  speculative: bool = False,
                  elastic: bool = False,
                  seed: int = 0,
-                 device=None):
+                 device=None,
+                 tracer=None):
         if exec_backend not in ("threads", "processes"):
             raise ValueError(
                 "workflow phases do real work; exec_backend must be "
@@ -477,6 +477,10 @@ class TrackWorkflow:
         self.elastic = elastic
         self.checkpoint_interval_s = checkpoint_interval_s
         self.seed = seed
+        #: Optional :class:`repro_torch.obs.Tracer`, threaded through
+        #: every phase run (barrier and dag): one trace covers the whole
+        #: workflow, with task ids namespaced per phase.
+        self.tracer = tracer
         self.registry = synthetic_registry(n=2000, seed=seed + 13)
         self.reports: list[PhaseReport] = []
 
@@ -530,7 +534,8 @@ class TrackWorkflow:
             poll_interval=self.poll_interval,
             checkpoint=ck,
             on_checkpoint=save_mid_phase,
-            checkpoint_interval_s=self.checkpoint_interval_s)
+            checkpoint_interval_s=self.checkpoint_interval_s,
+            tracer=self.tracer)
         state["phases_done"].append(phase)
         state["manager"] = None
         state["manager_phase"] = None
@@ -796,7 +801,8 @@ class TrackWorkflow:
             on_checkpoint=save_mid_stream,
             checkpoint_interval_s=self.checkpoint_interval_s,
             speculative=self.speculative,
-            elastic=self.elastic)
+            elastic=self.elastic,
+            tracer=self.tracer)
         if run_store:
             if store_tasks is not None:
                 # No process edge to stream commits through (a prior run
@@ -970,21 +976,30 @@ def main(argv=None) -> None:
     ap.add_argument("--screen-cell-deg", type=float, default=0.25,
                     help="spatial-hash cell width (degrees; must divide "
                          "360)")
+    ap.add_argument("--trace", default=None, metavar="DIR",
+                    help="write observability artifacts to DIR: "
+                         "trace.json (Chrome/Perfetto trace of every "
+                         "phase and store read) and TRACE_summary.json "
+                         "(canonical repro.obs/v1 summary; feed either "
+                         "file to `python -m repro_torch.obs.report`)")
     # Reference modes that later slices bring; accepted only to be
     # rejected with the slice's name.
     ap.add_argument("--serve", action="store_true",
                     help="not ported yet: " + NOT_PORTED["--serve"])
-    ap.add_argument("--trace", default=None, metavar="DIR",
-                    help="not ported yet: " + NOT_PORTED["--trace"])
     args = ap.parse_args(argv)
 
-    asked = {"--serve": args.serve, "--trace": args.trace is not None}
+    asked = {"--serve": args.serve}
     for flag, on in asked.items():
         if on:
             ap.error(f"{flag} is not ported yet: it waits for "
                      f"{NOT_PORTED[flag]}")
     if args.manager_shards < 1:
         ap.error("--manager-shards must be >= 1")
+
+    tracer = None
+    if args.trace:
+        from repro_torch.obs import Tracer
+        tracer = Tracer()
 
     triple = None
     if args.nodes is not None:
@@ -1005,7 +1020,8 @@ def main(argv=None) -> None:
                        screen_cell_deg=args.screen_cell_deg,
                        speculative=args.speculative,
                        elastic=args.elastic,
-                       device=args.device)
+                       device=args.device,
+                       tracer=tracer)
     if not os.path.isdir(wf.raw_dir):
         t0 = time.perf_counter()
         n = wf.generate_raw(n_files=args.files, scale=args.scale)
@@ -1020,6 +1036,11 @@ def main(argv=None) -> None:
             n = len(json.load(f)["candidates"])
         print(f"screen    : {n} candidate encounters -> "
               f"{wf.candidates_path}")
+    if tracer is not None:
+        from repro_torch.obs import write_trace_files
+        paths = write_trace_files(tracer, args.trace, label=args.pipeline)
+        print(f"trace: {len(tracer)} events -> {paths['trace']}, "
+              f"summary -> {paths['summary']}")
 
 
 if __name__ == "__main__":

@@ -10,6 +10,7 @@ This file imports no JAX (the card's machine has none); the plain
 versions were checked against JAX in tests/test_torch_kernels.py.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -726,6 +727,70 @@ def test_dag_processes_resume_on_card_matches_barrier(dev, tmp_path):
     assert resumed["done_by_workers"][0] > 0
     _dag_step(tmp_path, "barrier")
     _same_as_barrier(tmp_path)
+
+
+def test_traced_dag_on_card_matches_untraced(dev, tmp_path, monkeypatch):
+    # A traced store + screen DAG on the card: the trace is the run's
+    # ledger, the outputs equal an untraced run's, and every task result
+    # is host data, so each drive-side exec span ends after its device
+    # work (nothing in the tracer or the runtime synchronizes the card).
+    import repro_torch.tracks.workflow as wfm
+    from repro_torch.obs import Tracer, phase_of
+
+    kept = []
+    real_run_dag = wfm.run_dag
+
+    def run_dag(*a, **k):
+        kept.append(real_run_dag(*a, **k))
+        return kept[-1]
+
+    monkeypatch.setattr(wfm, "run_dag", run_dag)
+    root = tmp_path / "run"
+    kw = dict(input="store", store_target_points=2048, screen=True,
+              screen_h_m=50_000.0, screen_v_m=1000.0, screen_cell_deg=1.0,
+              n_workers=4, poll_interval=0.003, device="cuda", mode="dag")
+    tracer = Tracer()
+    trees = {}
+    for name, tr in (("untraced", None), ("traced", tracer)):
+        wf = wfm.TrackWorkflow(str(root), tracer=tr, **kw)
+        wf.generate_raw(n_files=1, scale=1e3)
+        assert [r.phase for r in wf.run()] == ["dag"]
+        trees[name] = {k: v for k, v in _tree(root).items()
+                       if k.startswith("store") or k == "candidates.json"}
+        os.rename(root, tmp_path / name)
+    assert len(trees["traced"]) >= 3
+    assert trees["traced"] == trees["untraced"]
+    assert json.loads(trees["traced"]["candidates.json"])["candidates"]
+    events = tracer.events
+    assert tracer.dropped == 0
+    completed = sorted(kept[1].run.completed_ids)
+    execs = [e for e in events if e[2] == "exec"]
+    assert sorted(e[5] for e in execs) == completed
+    assert sorted(e[5] for e in events if e[2] == "done") == completed
+    by_worker = {}
+    for e in execs:
+        by_worker.setdefault(str(e[4]), []).append(e)
+    for spans in by_worker.values():
+        spans.sort(key=lambda e: e[0])
+        for prev, nxt in zip(spans, spans[1:]):
+            assert nxt[0] >= prev[0] + prev[1] - 1e-9
+    assert {phase_of(e[5]) for e in execs} == {
+        "organize", "archive", "store-build", "process", "screen"}
+
+    def on_host(x):
+        if isinstance(x, torch.Tensor):
+            return False
+        if dataclasses.is_dataclass(x):
+            return on_host(vars(x))
+        if isinstance(x, dict):
+            return all(on_host(v) for v in x.values())
+        if isinstance(x, (list, tuple)):
+            return all(on_host(v) for v in x)
+        return True
+
+    for node in ("process", "screen"):
+        results = kept[1].node_results.get(node, {})
+        assert results and on_host(list(results.values()))
 
 
 # ---------------------------------------------------------------------------

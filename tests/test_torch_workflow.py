@@ -140,3 +140,65 @@ def test_port_workflow_runs_without_jax(tmp_path, backend):
     assert doc["dag_phases"] == ["dag"] and doc["dag_same"]
     assert doc["sim_tasks"] == 200
     assert doc["foreign"] == []
+
+
+_TRACE_DRIVER = r"""
+import contextlib, io, json, os, runpy, sys
+import torch
+torch.set_num_threads(1)
+from repro_torch.obs import Tracer
+from repro_torch.tracks import workflow
+root, backend = sys.argv[1], sys.argv[2]
+# A traced store + screen DAG, through the API.
+tracer = Tracer()
+wf = workflow.TrackWorkflow(root + "/dag", input="store",
+                            store_target_points=2048, screen=True,
+                            screen_h_m=50_000.0, screen_v_m=1000.0,
+                            screen_cell_deg=1.0, mode="dag", n_workers=2,
+                            exec_backend=backend, tasks_per_message=2,
+                            poll_interval=0.003, device="cpu",
+                            tracer=tracer)
+wf.generate_raw(n_files=1, scale=1e3)
+wf.run()
+# --trace through the CLI's main, then the report as a module run.
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    workflow.main(["--root", root + "/cli", "--device", "cpu", "--files",
+                   "1", "--scale", "1000", "--workers", "2", "--backend",
+                   backend, "--trace", root + "/trace"])
+report = io.StringIO()
+sys.argv = ["report", root + "/trace/TRACE_summary.json"]
+with contextlib.redirect_stdout(report):
+    try:
+        runpy.run_module("repro_torch.obs.report", run_name="__main__")
+        code = 0
+    except SystemExit as e:
+        code = e.code
+print(json.dumps({
+    "dag_events": len(tracer),
+    "dropped": tracer.dropped,
+    "cli_trace_lines": [ln for ln in out.getvalue().splitlines()
+                        if ln.startswith("trace: ")],
+    "files": sorted(os.listdir(root + "/trace")),
+    "report_code": code,
+    "report_has_critical_path": "critical path" in report.getvalue(),
+    "foreign": sorted(m for m in sys.modules
+                      if m == "jax" or m.startswith(("jax.", "repro.")))
+                      + (["repro"] if "repro" in sys.modules else []),
+}))
+"""
+
+
+@pytest.mark.parametrize("backend", ["threads", "processes"])
+def test_port_trace_runs_without_jax(tmp_path, backend):
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
+    proc = subprocess.run(
+        [sys.executable, "-c", _TRACE_DRIVER, str(tmp_path / "wf"), backend],
+        capture_output=True, text=True, env=env, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    doc = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert doc["dag_events"] > 0 and doc["dropped"] == 0
+    assert len(doc["cli_trace_lines"]) == 1
+    assert doc["files"] == ["TRACE_summary.json", "trace.json"]
+    assert doc["report_code"] == 0 and doc["report_has_critical_path"]
+    assert doc["foreign"] == []

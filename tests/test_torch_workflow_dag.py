@@ -217,12 +217,12 @@ def test_cli_pipeline_dag(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "dag       :" in out and "candidate encounters" in out
     assert os.path.exists(os.path.join(root, "candidates.json"))
-    assert list(port_workflow.NOT_PORTED) == ["--serve", "--trace"]
+    assert list(port_workflow.NOT_PORTED) == ["--serve"]
 
 
 @pytest.mark.parametrize("argv,message", [
     (["--serve"], "--serve is not ported yet"),
-    (["--trace", "out"], "--trace is not ported yet"),
+    (["--trace", "out", "--serve"], "--serve is not ported yet"),
     (["--pipeline", "dag", "--manager-shards", "0"],
      "--manager-shards must be >= 1"),
 ])
