@@ -54,11 +54,7 @@ Phases, each printed as it runs:
              against the zip path's, bitwise; the screen launches by
              padded (K, T) shape, track_interp's and dynamic_rates' by
              shape; 200 screen tasks profiled (host split, device busy
-             time, the screen kernels' own device time); then
-             track_interp and dynamic_rates at the most frequent launch
-             shape of phase 3, of phase 5 and of phase 5b, bitwise,
-             timed beside their plain versions, bounds and launch
-             floors.
+             time, the screen kernels' own device time).
 5b. dag    — the same workflow as one streaming DAG (mode="dag"): phase
              5's data and settings, at phase 5's root (moved aside),
              traced (``repro_torch.obs.Tracer``), with the four launch
@@ -109,6 +105,35 @@ Phases, each printed as it runs:
              forward; BatchedServer (4 slots, prompt 64, cache 256): one
              warm-up request, then 3 rounds of 8 seeded requests of 16
              new tokens each, every round gated and timed on its own.
+8. bench   — the bench matrices of ``repro_torch.bench``: the campaign's
+             quick tier (Tables I/II on the sim, in virtual seconds of the
+             cost model, and the threads smoke), the kernels, storage and
+             encounters matrices at their full tier on the card, each with
+             the four launch counters zeroed just before and read just
+             after (launches by kernel and shape printed; a matrix that
+             bypasses its kernels fails), and the scheduling quick tier
+             (host work).  Every artifact validates and is written under
+             ``experiments/chip_smoke/bench``; every check of a
+             deterministic metric passes (candidate exactness, fused vs
+             unfused within 1e-5, no intermediate transfer, bitwise feeds,
+             identical rebuilds, every task completed); the speed checks
+             (``speedup_x``, ``feed_speedup_x``, ``kernel_speedup_x``, the
+             prefetch-wait cut) are printed with their outcome, and the
+             card's fused-vs-unfused differences; the kernels matrix's
+             quick cell is timed fused and unfused without a profiler
+             (alternating windows, medians), then under torch.profiler
+             (device busy; the idle share is taken against the
+             unprofiled time) and under cProfile (the host split, as
+             shares).  The segment outputs of every
+             kernels cell (fused and unfused) and of the storage
+             matrix's pipeline calls are held against the CPU's plain
+             versions on the same items (1e-4 + 1e-6 |CPU|, headings
+             wrapped).  The quick cells of kernels and encounters run
+             again on the CPU and their metrics equal the card run's.
+             Last, track_interp and dynamic_rates at the most frequent
+             launch shape of phases 3, 5 and 5b and of the kernels and
+             storage matrices, bitwise, timed beside their plain
+             versions, bounds and launch floors.
 
 The line before the last is the card's name and power limit; before it
 one JSON object lists every kernel with its timings.  The last line is
@@ -619,8 +644,9 @@ def top_shape(by_shape: dict):
 
 
 def phase_workflow_shapes(shapes: dict) -> dict:
-    """track_interp and dynamic_rates at each workflow's most frequent
-    launch shape (``shapes``: workflow -> kernel -> launches_by_shape),
+    """track_interp and dynamic_rates at each workflow's or bench
+    matrix's most frequent launch shape (``shapes``: label -> kernel ->
+    launches_by_shape),
     bitwise against their plain versions and timed beside them, their
     bounds and the launch floor of their grids."""
     import numpy as np
@@ -842,8 +868,42 @@ def phase_workflow() -> tuple[dict, str, dict]:
     return launches, wf.archive_dir, shapes
 
 
-def phase_globe(archive_dir: str, globe_dem) -> None:
+PLANES = ("times", "lat", "lon", "alt_msl_m", "alt_agl_m", "vrate_ms",
+          "gspeed_ms", "heading_rad", "turn_rad_s")
+
+
+def card_vs_cpu(pairs, what: str, worst: dict | None = None) -> dict:
+    """Segment outputs of the card against the CPU's (plain versions) on
+    the same items, ``pairs`` of (tag, card, CPU): names, airspace and
+    counts equal and every plane within CARD_ATOL + CARD_RTOL * |CPU|
+    (headings as wrapped angles); returns the worst |diff| by plane,
+    updating ``worst`` where given."""
     import numpy as np
+    worst = {} if worst is None else worst
+    for tag, g, w in pairs:
+        if g.icao24 != w.icao24 or g.airspace != w.airspace or \
+                not np.array_equal(g.count, w.count):
+            raise AssertionError(f"{what} {tag}: names/airspace/counts "
+                                 f"differ")
+        for attr in PLANES:
+            a, b = getattr(g, attr), getattr(w, attr)
+            if a.shape != b.shape:
+                raise AssertionError(f"{what} {tag} {attr}: shape "
+                                     f"{a.shape} vs {b.shape}")
+            if not a.size:
+                continue
+            if attr == "heading_rad":
+                d = np.abs(np.angle(np.exp(1j * (a.astype(np.float64) - b))))
+            else:
+                d = np.abs(a.astype(np.float64) - b)
+            worst[attr] = max(worst.get(attr, 0.0), float(d.max()))
+            if (d > CARD_ATOL + CARD_RTOL * np.abs(b)).any():
+                raise AssertionError(f"{what} {tag} {attr}: card and CPU "
+                                     f"differ by {d.max()}")
+    return worst
+
+
+def phase_globe(archive_dir: str, globe_dem) -> None:
     import torch
     from repro_torch.geometry.aerodromes import synthetic_aerodromes
     from repro_torch.tracks.segments import (
@@ -878,26 +938,8 @@ def phase_globe(archive_dir: str, globe_dem) -> None:
     if gpu.last_stats != cpu.last_stats:
         raise AssertionError(f"bucket plans differ: {gpu.last_stats} vs "
                              f"{cpu.last_stats}")
-    worst = {}
-    for tid, w in want.items():
-        g = got[tid]
-        if g.icao24 != w.icao24 or g.airspace != w.airspace or \
-                not np.array_equal(g.count, w.count):
-            raise AssertionError(f"{tid}: names/airspace/counts differ")
-        for attr in ("times", "lat", "lon", "alt_msl_m", "alt_agl_m",
-                     "vrate_ms", "gspeed_ms", "heading_rad", "turn_rad_s"):
-            a, b = getattr(g, attr), getattr(w, attr)
-            if not a.size:
-                continue
-            if attr == "heading_rad":
-                d = np.abs(np.angle(np.exp(1j * (a.astype(np.float64) - b))))
-            else:
-                d = np.abs(a.astype(np.float64) - b)
-            bad = d > CARD_ATOL + CARD_RTOL * np.abs(b)
-            worst[attr] = max(worst.get(attr, 0.0), float(d.max()))
-            if bad.any():
-                raise AssertionError(f"{tid} {attr}: card and CPU differ "
-                                     f"by {d.max()}")
+    worst = card_vs_cpu(((tid, got[tid], w) for tid, w in want.items()),
+                        "GLOBE batch")
     say("globe", f"{len(tasks)} archives, {n_seg} segments, "
                  f"{gpu.last_stats['pipeline_calls']} pipeline calls on a "
                  f"{globe_dem.elevation_m.shape[0]} x "
@@ -1579,6 +1621,341 @@ def phase_flash() -> dict:
     return res
 
 
+# Phase 8: the bench matrices (repro_torch.bench).  Checks on a record's
+# deterministic ``metrics`` must pass; checks on ``measured`` read a
+# clock (speed gates) and are printed with their outcome.  The card's
+# and the CPU's quick cells must agree on every metric but the fused-
+# vs-unfused difference, which each side keeps within BENCH_DIFF_TOL.
+BENCH_DIFF = "max_abs_diff_vs_baseline"
+BENCH_DIFF_TOL = 1e-5
+BENCH_CARD_KERNELS = {"kernels": ("track_interp", "agl_lookup",
+                                  "dynamic_rates"),
+                      "storage": ("track_interp", "agl_lookup",
+                                  "dynamic_rates"),
+                      "encounters": ("encounter_screen",)}
+# Deterministic metrics every record that has them must hold, whatever
+# its declared checks.
+BENCH_EXACT = {"candidate_set_equal": 1, "candidate_values_equal": 1,
+               "feed_bitwise_equal": 1.0, "rebuild_identical": 1.0,
+               "intermediate_transfers": 0}
+
+
+def bench_checks(kind: str, doc: dict) -> list:
+    """Raise on an errored record or a failed check of a deterministic
+    metric; return the speed checks (on ``measured``) as printable
+    lines."""
+    speed = []
+    for rec in doc["scenarios"]:
+        if rec["status"] == "error":
+            raise AssertionError(f"{kind} {rec['name']}: {rec['error']}")
+        m = rec["metrics"]
+        for key, want in BENCH_EXACT.items():
+            if key in m and m[key] != want:
+                raise AssertionError(f"{kind} {rec['name']}: {key} = "
+                                     f"{m[key]}, not {want}")
+        if BENCH_DIFF in m and not m[BENCH_DIFF] <= BENCH_DIFF_TOL:
+            raise AssertionError(f"{kind} {rec['name']}: {BENCH_DIFF} = "
+                                 f"{m[BENCH_DIFF]}")
+        for c in rec["checks"]:
+            line = (f"{kind} {rec['name']}: {c['metric']} = {c['actual']} "
+                    f"vs {c['kind']} {c['expect']}: "
+                    f"{'pass' if c['passed'] else 'FAIL'}")
+            if c["metric"] in rec["measured"]:
+                speed.append(line)
+            elif not c["passed"]:
+                raise AssertionError(f"correctness check failed: {line}")
+    return speed
+
+
+def bench_same_as_cpu(kind: str, card: dict, cpu: dict) -> int:
+    """The CPU run's records against the card run's same-named ones:
+    every metric equal but BENCH_DIFF (each side within its tolerance,
+    checked by bench_checks)."""
+    by_name = {r["name"]: r for r in card["scenarios"]}
+    for rec in cpu["scenarios"]:
+        got = {k: v for k, v in by_name[rec["name"]]["metrics"].items()
+               if k != BENCH_DIFF}
+        want = {k: v for k, v in rec["metrics"].items() if k != BENCH_DIFF}
+        if got != want:
+            diff = {k: (got.get(k), want.get(k)) for k in set(got) | set(want)
+                    if got.get(k) != want.get(k)}
+            raise AssertionError(f"{kind} {rec['name']}: card and CPU "
+                                 f"metrics differ: {diff}")
+    return len(cpu["scenarios"])
+
+
+def profile_kernel_cell(record: dict, repeats: int = 5,
+                        rounds: int = 5) -> dict:
+    """Where the kernels matrix's quick cell spends a steady batch, fused
+    and unfused, on the card, in windows of ``repeats`` batches: first
+    ``rounds`` unprofiled windows of each path, alternated (wall ms a
+    batch, median and range; the idle share is taken against the
+    median), then one under torch.profiler alone (device busy ms) and one
+    under cProfile alone (the host split, as shares of that window's
+    wall time: cProfile slows the host).  ``record`` is the cell's bench
+    record, whose own timing (one window of its repeats) is printed
+    beside."""
+    import cProfile
+    import pstats
+    import statistics
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.bench import kernels as kbench
+    from repro_torch.geometry.aerodromes import synthetic_aerodromes
+    from repro_torch.tracks.segments import SegmentProcessor
+
+    spec = next(sc for sc in kbench.kernel_scenarios()
+                if sc.name == record["name"]).run
+    items = kbench.synth_items(spec)
+
+    def window(proc) -> float:
+        t0 = time.perf_counter()
+        for _ in range(repeats):
+            proc._process_many(items)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / repeats * 1e3
+
+    procs = {}
+    for pipeline in ("fused", "unfused"):
+        procs[pipeline] = SegmentProcessor(
+            aerodromes=synthetic_aerodromes(n=48), device="cuda",
+            pipeline=pipeline)
+        procs[pipeline]._process_many(items)        # shapes, DEM upload
+    torch.cuda.synchronize()
+    walls = {pipeline: [] for pipeline in procs}
+    for _ in range(rounds):
+        for pipeline, proc in procs.items():
+            walls[pipeline].append(window(proc))
+    out = {}
+    for pipeline, proc in procs.items():
+        wall = statistics.median(walls[pipeline])
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            wall_traced = window(proc)
+        busy = sum(_device_busy(prof).values()) / repeats
+        host = cProfile.Profile()
+        host.enable()
+        wall_cprofile = window(proc)
+        host.disable()
+        cum = {}
+        for (path, _line, name), row in pstats.Stats(host).stats.items():
+            key = f"{os.path.basename(path)}:{name}"
+            cum[key] = cum.get(key, 0.0) + row[3] / repeats * 1e3
+        share = {k: cum.get(k, 0.0) / wall_cprofile for k in (
+            "segments.py:_records", "ops.py:process_segments",
+            "ops.py:track_interp", "ops.py:agl_lookup",
+            "ops.py:dynamic_rates", "segments.py:_airspace_classes")}
+        share["Tensor.cpu"] = sum(v for k, v in cum.items()
+                                  if "method 'cpu' of" in k) / wall_cprofile
+        idle = 1 - busy / wall if busy > 0 else None
+        out[pipeline] = {"wall_ms": wall, "wall_ms_range":
+                         [min(walls[pipeline]), max(walls[pipeline])],
+                         "wall_traced_ms": wall_traced,
+                         "wall_cprofile_ms": wall_cprofile,
+                         "device_busy_ms": busy, "idle_share": idle,
+                         "host_share": share}
+        say("bench", f"{spec.workload} {pipeline}: {wall:.3f} ms a batch "
+                     f"unprofiled (median of {rounds} windows of {repeats}, "
+                     f"{min(walls[pipeline]):.3f}-{max(walls[pipeline]):.3f};"
+                     f" {proc.last_stats['pipeline_calls']} pipeline calls); "
+                     f"device busy {busy:.4f} ms under torch.profiler "
+                     f"({wall_traced:.3f} ms a batch there), "
+                     + (f"idle share {idle:.4f} of the unprofiled batch"
+                        if idle is not None else "profiler saw no device "
+                        "time: idle share not measured")
+                     + f"; host shares under cProfile ({wall_cprofile:.3f} "
+                       f"ms a batch there): " + ", ".join(
+                           f"{k} {v:.3f}" for k, v in share.items() if v))
+    m = record["measured"]
+    say("bench", f"{spec.workload} unprofiled unfused/fused "
+                 f"{out['unfused']['wall_ms'] / out['fused']['wall_ms']:.4f}"
+                 f" (medians); the bench record's own window: fused "
+                 f"{m['wall_s_per_batch'] * 1e3:.3f} ms, unfused "
+                 f"{m['baseline_wall_s_per_batch'] * 1e3:.3f} ms a batch, "
+                 f"speedup_x {m['speedup_x']:.4f}")
+    return out
+
+
+def bench_outputs_vs_cpu() -> dict:
+    """The segment outputs of every kernels-matrix cell (fused and its
+    unfused baseline) and of every storage cell that feeds the pipeline,
+    on the card against the CPU on the same items (card_vs_cpu), pass by
+    pass as the bench makes its pipeline calls; outside the counted
+    runs.  Returns the worst |diff| by plane and what was compared."""
+    import dataclasses
+    import torch
+    from repro_torch.bench import kernels as kbench
+    from repro_torch.bench import storage as sbench
+    from repro_torch.store.reader import TrackStore
+
+    worst, archives, calls = {}, 0, 0
+    card, cpu = torch.device("cuda"), torch.device("cpu")
+    for sc in kbench.kernel_scenarios():
+        for spec in (sc.run, sc.baseline):
+            one = dataclasses.replace(spec, repeats=1)
+            got = kbench._execute(one, card)["outputs"]
+            want = kbench._execute(one, cpu)["outputs"]
+            card_vs_cpu(((f"{spec.pipeline} archive {i}", g, w) for i, (g, w)
+                         in enumerate(zip(got, want, strict=True))),
+                        f"kernels {sc.name}", worst)
+            archives += len(want)
+    for sc in sbench.storage_scenarios():
+        for spec in (sc.run, sc.baseline):
+            if spec is None or spec.consume != "pipeline":
+                continue
+            fx = sbench._fixture(spec)
+            if spec.source == "zip":
+                work = [[(obs, segs)] for _tid, obs, segs
+                        in sbench._feed_zip(fx, cold=False) if segs]
+            else:
+                work = [[it for it in b.items if it[1]] for b in
+                        TrackStore(fx["store_root"]).iter_batches(prefetch=0)]
+            on_card = sbench._consumer(spec, card)
+            on_cpu = sbench._consumer(spec, cpu)
+            for j, items in enumerate(w for w in work if w):
+                card_vs_cpu(((f"{spec.source} call {j} track {i}", g, w)
+                             for i, (g, w) in enumerate(zip(
+                                 on_card._process_many(items),
+                                 on_cpu._process_many(items), strict=True))),
+                            f"storage {sc.name}", worst)
+                calls += 1
+    return {"worst": worst, "kernels_archives": archives,
+            "storage_calls": calls}
+
+
+def phase_bench() -> dict:
+    """The bench matrices of repro_torch.bench: the campaign's quick tier
+    (sim and threads), the kernels, storage and encounters matrices at
+    their full tier on the card with the launch counters zeroed just
+    before each and read just after, and the scheduling quick tier; then
+    the quick cells of kernels and encounters again on the CPU."""
+    import torch
+    from repro_torch.bench import all_scenarios, schema
+    from repro_torch.bench import encounters as ebench
+    from repro_torch.bench import engine
+    from repro_torch.bench import kernels as kbench
+    from repro_torch.bench import scheduling as pbench
+    from repro_torch.bench import storage as sbench
+    from repro_torch.kernels import agl_lookup, dynamic_rates
+    from repro_torch.kernels import encounter_screen, track_interp
+
+    out_dir = os.path.join(WORK, "bench")
+    os.makedirs(out_dir, exist_ok=True)
+    mods = {"track_interp": track_interp, "agl_lookup": agl_lookup,
+            "dynamic_rates": dynamic_rates,
+            "encounter_screen": encounter_screen}
+    matrices = (
+        ("campaign", lambda: engine.run_campaign(
+            all_scenarios(), quick=True, device="cuda"),
+         schema.validate_campaign, engine.summary_lines),
+        ("kernels", lambda: kbench.run_kernel_campaign(device="cuda"),
+         schema.validate_kernels, kbench.kernel_summary_lines),
+        ("storage", lambda: sbench.run_storage_campaign(device="cuda"),
+         schema.validate_storage, sbench.storage_summary_lines),
+        ("encounters", lambda: ebench.run_encounter_campaign(device="cuda"),
+         schema.validate_encounters, ebench.encounter_summary_lines),
+        ("scheduling", lambda: pbench.run_scheduling_campaign(
+            quick=True, device="cuda"),
+         schema.validate_scheduling, pbench.scheduling_summary_lines),
+    )
+    t_phase = time.perf_counter()
+    docs, walls, launches, shapes, speed = {}, {}, {}, {}, []
+    for kind, run, validate, summary in matrices:
+        zero_counters(mods)
+        encounter_screen.launches_by_shape.clear()
+        t0 = time.perf_counter()
+        doc = run()
+        torch.cuda.synchronize()
+        walls[kind] = time.perf_counter() - t0
+        counted = {name: mod.launches for name, mod in mods.items()}
+        problems = validate(doc)
+        if problems:
+            raise AssertionError(f"{kind} artifact invalid: {problems[:5]}")
+        docs[kind] = doc
+        path = os.path.join(out_dir, f"BENCH_{kind}.json")
+        with open(path, "w") as f:
+            json.dump(doc, f, indent=1, sort_keys=True)
+            f.write("\n")
+        for line in summary(doc):
+            say("bench", line)
+        label = ("virtual seconds of the cost model; threads smoke on the "
+                 "host" if kind == "campaign" else "on the card"
+                 if kind in BENCH_CARD_KERNELS else "host work")
+        say("bench", f"{kind}: wall {walls[kind]:.3f}s ({label}); "
+                     f"environment {doc['environment']}; wrote {path}")
+        speed += bench_checks(kind, doc)
+        if kind in BENCH_CARD_KERNELS:
+            launches[kind] = counted
+            say("bench", f"{kind}: launches {counted}")
+            if any(counted[name] < 1 for name in BENCH_CARD_KERNELS[kind]):
+                raise AssertionError(f"the {kind} matrix bypassed a kernel: "
+                                     f"{counted}")
+            if kind in ("kernels", "storage"):
+                shapes[f"{kind} matrix"] = snapshot_shapes(mods)
+                say_shapes("bench", shapes[f"{kind} matrix"], counted)
+            else:
+                by = sorted(encounter_screen.launches_by_shape.items(),
+                            key=lambda kv: (-kv[1], kv[0]))
+                say("bench", "encounter_screen launches by shape (K, T): "
+                    + ", ".join(f"{k}: {n}" for k, n in by[:SHAPES_PRINTED])
+                    + (f", and {len(by) - SHAPES_PRINTED} more shapes"
+                       if len(by) > SHAPES_PRINTED else ""))
+                if sum(n for _, n in by) != counted["encounter_screen"]:
+                    raise AssertionError("encounter_screen launches_by_shape "
+                                         "does not sum to its launches")
+        elif any(counted.values()):
+            raise AssertionError(f"the {kind} matrix launched kernels: "
+                                 f"{counted}")
+    for line in speed:
+        say("bench", f"speed check {line}")
+    say("bench", f"kernels {BENCH_DIFF} on the card (limit "
+                 f"{BENCH_DIFF_TOL}): " + ", ".join(
+                     f"{r['name']} {r['metrics'][BENCH_DIFF]}"
+                     for r in docs["kernels"]["scenarios"]))
+    profile_kernel_cell(next(r for r in docs["kernels"]["scenarios"]
+                             if r["tier"] == "quick"))
+
+    # Outside the counted runs: the kernels' outputs on the matrices'
+    # own items against the CPU's plain versions, then the quick cells
+    # again on the CPU.
+    t0 = time.perf_counter()
+    vs = bench_outputs_vs_cpu()
+    walls["card vs CPU outputs"] = time.perf_counter() - t0
+    say("bench", f"card vs CPU outputs: {vs['kernels_archives']} archives "
+                 f"of the kernels matrix (every cell, fused and unfused), "
+                 f"{vs['storage_calls']} pipeline calls of the storage "
+                 f"matrix's pipeline cells; max |card - CPU| per plane "
+                 f"(limit {CARD_ATOL} + {CARD_RTOL} |CPU|, headings "
+                 f"wrapped): " + ", ".join(
+                     f"{k} {v:.3g}" for k, v in vs["worst"].items()))
+    t0 = time.perf_counter()
+    cpu = {"kernels": kbench.run_kernel_campaign(quick=True, device="cpu"),
+           "encounters": ebench.run_encounter_campaign(quick=True,
+                                                       device="cpu")}
+    walls["cpu quick cells"] = time.perf_counter() - t0
+    for kind, doc in cpu.items():
+        bench_checks(kind, doc)
+        n = bench_same_as_cpu(kind, docs[kind], doc)
+        diffs = [(r["name"], r["metrics"][BENCH_DIFF])
+                 for r in doc["scenarios"] if BENCH_DIFF in r["metrics"]]
+        say("bench", f"{kind}: {n} quick cells, card metrics equal to the "
+                     f"CPU run's" + (f"; CPU {BENCH_DIFF} {diffs}"
+                                     if diffs else ""))
+    total = time.perf_counter() - t_phase
+    say("bench", "wall s " + ", ".join(f"{k} {v:.3f}"
+                                       for k, v in walls.items())
+        + f"; phase 8 in {total:.3f}s")
+    headline = {}
+    for kind, metric in (("kernels", "speedup_x"),
+                         ("storage", "feed_speedup_x"),
+                         ("encounters", "kernel_speedup_x")):
+        headline[kind] = {r["name"]: r["measured"][metric]
+                          for r in docs[kind]["scenarios"]
+                          if metric in r["measured"]}
+        say("bench", f"{kind} {metric}: {headline[kind]}")
+    return {"launches": launches, "shapes": shapes, "walls": walls,
+            "total_s": total, "headline": headline}
+
+
 def rel_diff(a, b) -> float:
     return ((a.float() - b.float()).abs().max()
             / (b.float().abs().max() + 1e-6)).item()
@@ -1818,12 +2195,14 @@ def main() -> int:
     screen_launches, screen_shapes, barrier = phase_screen_workflow()
     dag_launches, dag_shapes, dag_trace = phase_dag(barrier)
     phase_trace(dag_trace)
+    flash = phase_flash()
+    lm = phase_lm()
+    bench = phase_bench()
     top_shapes = phase_workflow_shapes({"zip workflow": zip_shapes,
                                         "store+screen workflow":
                                             screen_shapes,
-                                        "store+screen DAG": dag_shapes})
-    flash = phase_flash()
-    lm = phase_lm()
+                                        "store+screen DAG": dag_shapes,
+                                        **bench["shapes"]})
 
     from repro_torch.kernels import _build
     sources = {"track_interp": "track_interp.cu",
@@ -1854,6 +2233,8 @@ def main() -> int:
                           for w, r in res["per_width"].items()},
             "launches_screen_workflow": screen_launches[name],
             "launches_dag_workflow": dag_launches[name],
+            "launches_bench": {kind: n[name] for kind, n in
+                               bench["launches"].items()},
         })
         if name in SHAPED:
             rows[-1]["plan"] = top["plan"]
@@ -1880,6 +2261,8 @@ def main() -> int:
         "library_ms": None, "shape": f"C={C} K={K} T={T}",
         "per_shape": screen["per_shape"],
         "launches_dag_workflow": dag_launches["encounter_screen"],
+        "launches_bench": {kind: n["encounter_screen"] for kind, n in
+                           bench["launches"].items()},
     })
     top_name = f"B=1 H=32 KV=8 T={FLASH_LM_T[-1]} S={FLASH_LM_T[-1]} " \
                f"hd=160 causal bfloat16"

@@ -7,13 +7,11 @@ optionally paired with a ``baseline`` run (for the paper's comparative
 claims: block vs cyclic, self-scheduling vs legacy batch) and a tuple of
 :class:`Check` s against published reference values.
 
-Scenarios are pure data — no clocks, no execution.  The campaign
-engine (the reference's ``repro.bench.engine``; the port's is not ported
-yet) expands each one into :func:`repro_torch.runtime.run_job` /
-``simulate_static`` invocations and serializes the outcome into BENCH
-records (:mod:`repro_torch.bench.schema`).  The port's obs bench
-(:mod:`repro_torch.bench.obs`) uses :data:`FAULT_PROFILES` and
-:class:`Check` today.
+Scenarios are pure data — no clocks, no execution.  The engine
+(:mod:`repro_torch.bench.engine`) expands each one into
+:func:`repro_torch.runtime.run_job` / ``simulate_static`` invocations
+and serializes the outcome into BENCH records
+(:mod:`repro_torch.bench.schema`).
 
 :func:`expand` is the matrix helper: any :class:`RunSpec` field given as a
 list/tuple becomes a swept axis, and the cartesian product becomes one

@@ -63,10 +63,15 @@ dependency in the container).
 
 The port keeps the schema names of the JAX reference package
 (``repro.*/v1``): they name artifact formats, which the two packages
-share, so an artifact of either validates and diffs the same way.  The
-``benchmarks/*.py`` producers named above belong to the reference; the
-port so far writes only the obs artifacts (:mod:`repro_torch.bench.obs`
-and :func:`repro_torch.obs.write_trace_files`).
+share, so an artifact of either validates and diffs the same way
+(``python -m repro_torch.bench.compare``).  The ``benchmarks/*.py``
+producers named above belong to the reference; the port writes the
+campaign, kernels, storage, scheduling and encounters artifacts from
+``python -m repro_torch.bench.{campaign,kernels,storage,scheduling,
+encounters}`` and the obs artifacts (:mod:`repro_torch.bench.obs`,
+:func:`repro_torch.obs.write_trace_files`), but no serving artifact
+(its bench is not ported yet).  A port artifact's ``environment`` also
+names the device it ran on (and a card's name and power limit).
 """
 
 from __future__ import annotations

@@ -1005,3 +1005,93 @@ def test_reduced_server_tokens_card_match_cpu(dev):
         return [r.tokens_out for r in reqs], server.steps
 
     assert run("cuda") == run("cpu")
+
+
+# ---------------------------------------------------------------------------
+# The bench matrices on the card (repro_torch.bench).
+# ---------------------------------------------------------------------------
+
+def _bench_tiny():
+    from repro_torch.bench import kernels as kbench
+    return kbench.KernelSpec(workload="heavy_tail", n_archives=2,
+                             segments_per_archive=3, repeats=1, seed=5)
+
+
+def test_kernel_bench_tiny_on_card_matches_cpu(dev):
+    from repro_torch.bench import kernels as kbench
+    spec = _bench_tiny()
+    sc = kbench.KernelScenario(
+        name="tiny", group="tiny", run=spec,
+        baseline=dataclasses.replace(spec, pipeline="unfused"))
+    before = {m.__name__: m.launches
+              for m in (interp_mod, agl_mod, rates_mod)}
+    got = kbench.run_kernel_scenario(sc, device=dev)
+    want = kbench.run_kernel_scenario(sc, device="cpu")
+    assert all(m.launches > before[m.__name__]
+               for m in (interp_mod, agl_mod, rates_mod))
+    diff = "max_abs_diff_vs_baseline"
+    assert got["metrics"][diff] <= 1e-5 and want["metrics"][diff] <= 1e-5
+    assert {k: v for k, v in got["metrics"].items() if k != diff} == \
+        {k: v for k, v in want["metrics"].items() if k != diff}
+    # The fused outputs, card against CPU, within PERF.md's card-vs-CPU
+    # tolerance (1e-4 + 1e-6 |CPU|; headings as wrapped angles).
+    card = kbench._execute(spec, torch.device("cuda"))["outputs"]
+    cpu = kbench._execute(spec, torch.device("cpu"))["outputs"]
+    for g, w in zip(card, cpu):
+        for attr in ("times", "lat", "lon", "alt_msl_m", "alt_agl_m",
+                     "vrate_ms", "gspeed_ms", "turn_rad_s"):
+            np.testing.assert_allclose(getattr(g, attr), getattr(w, attr),
+                                       rtol=1e-6, atol=1e-4, err_msg=attr)
+        d = np.angle(np.exp(1j * (g.heading_rad.astype(np.float64)
+                                  - w.heading_rad)))
+        assert np.abs(d).max(initial=0.0) <= 1e-4
+
+
+def test_encounter_bench_exact_cell_on_card(dev):
+    from repro_torch.bench import encounters as ebench
+    sc = next(s for s in ebench.encounter_scenarios()
+              if s.name == "enc_exact_tiny_dense_pallas")
+    before = screen_mod.launches
+    rec = ebench.run_encounter_scenario(sc, device=dev)
+    assert screen_mod.launches > before
+    assert rec["status"] == "pass", rec["checks"]
+    assert rec["metrics"]["candidate_set_equal"] == 1
+    assert rec["metrics"]["candidate_values_equal"] == 1
+    cpu = ebench.run_encounter_scenario(sc, device="cpu")
+    assert rec["metrics"] == cpu["metrics"]
+
+
+def test_storage_bench_pipeline_cell_on_card(dev):
+    from repro_torch.bench import storage as sbench
+    run = sbench.StorageSpec(source="store", phase="warm", prefetch=2,
+                             consume="pipeline", n_archives=6,
+                             segments_per_archive=4, target_points=1024,
+                             repeats=1)
+    sc = sbench.StorageScenario(
+        name="pipeline_small", group="storage_overlap", run=run,
+        baseline=dataclasses.replace(run, prefetch=0),
+        checks=(sbench.Check("feed_bitwise_equal", "min", 1.0),
+                sbench.Check("rebuild_identical", "min", 1.0)))
+    before = interp_mod.launches
+    rec = sbench.run_storage_scenario(sc, device=dev)
+    assert interp_mod.launches > before
+    assert rec["status"] == "pass", (rec["error"], rec["checks"])
+    cpu = sbench.run_storage_scenario(sc, device="cpu")
+    assert rec["metrics"] == cpu["metrics"]
+
+
+def test_smoke_processes_cell_after_a_kernel_launch(dev):
+    from repro_torch.bench import engine, paper
+    from repro_torch.runtime import transports
+    args = [torch.from_numpy(x).to(dev) for x in _tracks(4, 16, 3, 32, 1)]
+    interp_mod.track_interp(*args)
+    torch.cuda.synchronize()
+    assert torch.cuda.is_initialized()
+    # CUDA is live in this process: its processes workers are spawned.
+    assert transports._default_start_method() == "spawn"
+    sc = next(s for s in paper.smoke_scenarios()
+              if s.name == "smoke_processes")
+    rec = engine.run_scenario(sc, device=dev)
+    assert rec["status"] == "pass", (rec["error"], rec["checks"])
+    assert rec["metrics"]["tasks_completed"] == 200
+    assert rec["metrics"]["backend"] == "processes"
