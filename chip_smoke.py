@@ -130,10 +130,28 @@ Phases, each printed as it runs:
              versions on the same items (1e-4 + 1e-6 |CPU|, headings
              wrapped).  The quick cells of kernels and encounters run
              again on the CPU and their metrics equal the card run's.
-             Last, track_interp and dynamic_rates at the most frequent
-             launch shape of phases 3, 5 and 5b and of the kernels and
-             storage matrices, bitwise, timed beside their plain
-             versions, bounds and launch floors.
+             Last (after phase 9), track_interp and dynamic_rates at
+             the most frequent launch shape of phases 3, 5, 5b and 9
+             and of the kernels and storage matrices, bitwise, timed
+             beside their plain versions, bounds and launch floors.
+9. serving — the continuous-ingest serving mode (host work): the
+             serving matrix not cut (``run_serving_campaign()``: three
+             cells, every deterministic check passing, the inline
+             cells' tiny-query p99 ratio gate printed pass or fail);
+             ``run_serve`` at 2048 files x 256 observations (threads, 8
+             workers, 2048 points a shard), its summary equal to the reference's on the same
+             seed and its sealed live store byte for byte a batch
+             ``build_store`` of the same feed; a 64-file serve on 2
+             processes workers (spawned: CUDA is live) equal to the
+             threads serve.  Then the live store processed on the card
+             on the GLOBE-resolution DEM, the process kernels' counters
+             zeroed just before and read just after (launches and top
+             shapes printed), bitwise against the batch store's outputs
+             and within 1e-4 + 1e-6 |CPU| of the CPU's plain versions;
+             its wall time and, under torch.profiler, the device's idle
+             share.  Every number is printed beside the card's name and
+             power limit.  The last check (interp and rates at each
+             workflow's top launch shape) includes this phase's.
 
 The line before the last is the card's name and power limit; before it
 one JSON object lists every kernel with its timings.  The last line is
@@ -1956,6 +1974,237 @@ def phase_bench() -> dict:
             "total_s": total, "headline": headline}
 
 
+# Phase 9: the serving mode at a real size.  run_serve's summary on this
+# feed, from a run of the reference (threads, 8 workers, same seed).
+SERVE_BIG = dict(n_files=2048, obs_per_file=256, target_points=2048,
+                 feed_batch=32, backend="threads", n_workers=8)
+SERVE_BIG_WANT = {"files_ingested": 2048, "points_ingested": 394124,
+                  "retained_tracks": 2048, "nearest_track": "f01633.csv"}
+SERVE_SMALL = dict(n_files=64, obs_per_file=256, target_points=2048,
+                   feed_batch=32, n_workers=2)
+
+
+def serving_bench(card: str) -> dict:
+    """The serving matrix, not cut: every deterministic check must pass;
+    the host-timing gates are printed pass or fail."""
+    from repro_torch.bench import schema
+    from repro_torch.bench import serving as vbench
+
+    t0 = time.perf_counter()
+    doc = vbench.run_serving_campaign()
+    wall = time.perf_counter() - t0
+    problems = schema.validate_serving(doc)
+    if problems:
+        raise AssertionError(f"serving artifact invalid: {problems[:5]}")
+    out_dir = os.path.join(WORK, "bench")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "BENCH_serving.json")
+    with open(path, "w") as f:
+        json.dump(doc, f, indent=1, sort_keys=True)
+        f.write("\n")
+    for line in vbench.serving_summary_lines(doc):
+        say("serving", line)
+    if [r["name"] for r in doc["scenarios"]] != [
+            s.name for s in vbench.serving_scenarios()]:
+        raise AssertionError("the serving matrix did not run every cell")
+    for rec in doc["scenarios"]:
+        if rec["status"] == "error":
+            raise AssertionError(f"serving {rec['name']}: {rec['error']}")
+        m, x = rec["metrics"], rec["measured"]
+        if m["snapshot_identical"] != 1.0:
+            raise AssertionError(f"serving {rec['name']}: live store is "
+                                 f"not the batch build")
+        if rec["spec"]["run"]["mode"] == "inline" and not \
+                m["ingest_lag_max_points"] <= rec["spec"]["run"][
+                    "target_points"]:
+            raise AssertionError(f"serving {rec['name']}: ingest lag "
+                                 f"{m['ingest_lag_max_points']} past the "
+                                 f"shard target")
+        say("serving", f"{rec['name']} (host times on the chip machine, "
+                       f"{card}): tiny p50/p99 idle "
+                       f"{x['tiny_p50_ms_idle']:.4f}/"
+                       f"{x['tiny_p99_ms_idle']:.4f} ms, under ingest "
+                       f"{x['tiny_p50_ms_ingest']:.4f}/"
+                       f"{x['tiny_p99_ms_ingest']:.4f} ms; ingest "
+                       f"{x['ingest_points_per_s']:.1f} points/s; snapshot "
+                       f"read {x['snapshot_read_s']:.4f} s; p99 ratio "
+                       f"{x['tiny_p99_ratio']:.4f}; shards "
+                       f"{m['shards_committed']}, points "
+                       f"{m['points_ingested']}")
+        # The host-timing gates the matrix declares (the inline cells'
+        # tiny-query p99 ratio), printed pass or fail, not raised.
+        for c in rec["checks"]:
+            if c["metric"] in x:
+                say("serving", f"speed check {rec['name']}: {c['metric']} "
+                               f"= {c['actual']} vs {c['kind']} "
+                               f"{c['expect']}: "
+                               f"{'pass' if c['passed'] else 'FAIL'}")
+    say("serving", f"serving matrix: {len(doc['scenarios'])} cells in "
+                   f"{wall:.3f}s (host work); wrote {path}")
+    return doc
+
+
+def serve_at(root: str, **kw) -> tuple[dict, float]:
+    from repro_torch.tracks.workflow import run_serve
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    summary = run_serve(root, **kw)
+    return summary, time.perf_counter() - t0
+
+
+def same_outputs(got: dict, want: dict, what: str) -> int:
+    """Segment outputs of two process_batch runs, bitwise: the same task
+    ids and tracks, names, airspace, counts and every plane."""
+    import numpy as np
+    if list(got) != list(want):
+        raise AssertionError(f"{what}: task ids differ")
+    n = 0
+    for task_id, by_track in want.items():
+        if list(got[task_id]) != list(by_track):
+            raise AssertionError(f"{what} {task_id}: tracks differ")
+        for tid, w in by_track.items():
+            g = got[task_id][tid]
+            if g.icao24 != w.icao24 or g.airspace != w.airspace or \
+                    not np.array_equal(g.count, w.count):
+                raise AssertionError(f"{what} {tid}: names/airspace/counts "
+                                     f"differ")
+            for attr in PLANES:
+                a, b = getattr(g, attr), getattr(w, attr)
+                if a.shape != b.shape or a.tobytes() != b.tobytes():
+                    raise AssertionError(f"{what} {tid} {attr}: not "
+                                         f"bitwise equal")
+            n += 1
+    return n
+
+
+def phase_serving(card: str, globe_dem) -> dict:
+    """The serving mode on the chip machine: the serving matrix; run_serve
+    at 2048 files, its summary against the reference's and its sealed
+    live store against a batch build, byte for byte; a small processes
+    serve against a threads serve; then the live store processed on the
+    card with the process kernels' counters zeroed just before and read
+    just after, bitwise against the batch store's outputs and within
+    1e-4 + 1e-6 |CPU| of the CPU's plain versions."""
+    import torch
+    from repro_torch.geometry.aerodromes import synthetic_aerodromes
+    from repro_torch.kernels import agl_lookup, dynamic_rates, track_interp
+    from repro_torch.runtime.transports import _default_start_method
+    from repro_torch.store.writer import build_store
+    from repro_torch.tracks.segments import (
+        SegmentProcessor, segment_tasks_from_store)
+
+    t_phase = time.perf_counter()
+    serving_bench(card)
+
+    # run_serve at a real size, then a batch build of the same feed.
+    root = os.path.join(WORK, "serve")
+    summary, wall = serve_at(root, **SERVE_BIG)
+    got = {k: summary[k] for k in SERVE_BIG_WANT}
+    if got != SERVE_BIG_WANT or summary["snapshot"]["n_tracks"] != \
+            SERVE_BIG_WANT["retained_tracks"]:
+        raise AssertionError(f"run_serve summary {summary} is not the "
+                             f"reference's {SERVE_BIG_WANT}")
+    live, batch = os.path.join(root, "store_live"), os.path.join(root,
+                                                                 "store_batch")
+    t0 = time.perf_counter()
+    build_store(os.path.join(root, "feed"), batch,
+                target_points=SERVE_BIG["target_points"])
+    build_s = time.perf_counter() - t0
+    live_tree, batch_tree = tree_bytes(live), tree_bytes(batch)
+    if live_tree != batch_tree:
+        raise AssertionError("the sealed live store is not the batch "
+                             "build's bytes")
+    say("serving", f"run_serve {SERVE_BIG}: {summary['files_ingested']} "
+                   f"files, {summary['shards_committed']} shards, "
+                   f"{summary['points_ingested']} points, generation "
+                   f"{summary['generation']}, {summary['retained_tracks']} "
+                   f"tracks retained, nearest {summary['nearest_track']}, "
+                   f"snapshot {summary['snapshot']['n_tracks']} tracks; "
+                   f"job_seconds {summary['job_seconds']:.3f} s, wall "
+                   f"{wall:.3f} s (host times on the chip machine, {card}); "
+                   f"live store == batch build ({len(live_tree)} files, "
+                   f"batch build {build_s:.3f} s)")
+
+    # A small serve on processes workers (ShardBuilder crosses spawn: the
+    # parent has initialised CUDA) against the same serve on threads, at
+    # one root (the manifest records the feed root).
+    small_root = os.path.join(WORK, "serve_small")
+    small, s_wall = serve_at(small_root, backend="threads", **SERVE_SMALL)
+    want_tree = tree_bytes(os.path.join(small_root, "store_live"))
+    procs, p_wall = serve_at(small_root, backend="processes", **SERVE_SMALL)
+    if tree_bytes(os.path.join(small_root, "store_live")) != want_tree:
+        raise AssertionError("processes serve's store differs from the "
+                             "threads serve's")
+    small.pop("job_seconds")
+    procs.pop("job_seconds")
+    if procs != small:
+        raise AssertionError(f"processes serve {procs} != threads {small}")
+    say("serving", f"small serve ({SERVE_SMALL['n_files']} files, 2 "
+                   f"processes workers, started by "
+                   f"{_default_start_method()}): processes store == "
+                   f"threads store "
+                   f"({small['shards_committed']} shards); wall threads "
+                   f"{s_wall:.3f} s, processes {p_wall:.3f} s")
+
+    # The live store on the card.
+    aero = synthetic_aerodromes(n=64)
+    gpu = SegmentProcessor(dem=globe_dem, aerodromes=aero, device="cuda")
+    cpu = SegmentProcessor(dem=globe_dem, aerodromes=aero, device="cpu")
+    live_tasks = segment_tasks_from_store(live, granularity="shard")
+    batch_tasks = segment_tasks_from_store(batch, granularity="shard")
+    gpu.process_batch(batch_tasks[:1])          # DEM upload, warm-up
+    mods = {"track_interp": track_interp, "agl_lookup": agl_lookup,
+            "dynamic_rates": dynamic_rates}
+    zero_counters(mods)
+    t0 = time.perf_counter()
+    on_card = gpu.process_batch(live_tasks)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = {name: mod.launches for name, mod in mods.items()}
+    shapes = snapshot_shapes(mods)
+    stats = dict(gpu.last_stats)
+    if min(launches.values()) < 1:
+        raise AssertionError(f"the live store bypassed a kernel: {launches}")
+    say_shapes("serving", shapes, launches)
+    n_tracks = same_outputs(gpu.process_batch(batch_tasks), on_card,
+                            "live vs batch store on the card")
+    t0 = time.perf_counter()
+    on_cpu = cpu.process_batch(live_tasks)
+    cpu_s = time.perf_counter() - t0
+    worst = card_vs_cpu(((tid, on_card[task][tid], w)
+                         for task, by in on_cpu.items()
+                         for tid, w in by.items()), "live store")
+    say("serving", f"live store on the card: {len(live_tasks)} shard "
+                   f"tasks, {n_tracks} tracks, {stats['n_segments']} "
+                   f"segments, {stats['pipeline_calls']} pipeline calls; "
+                   f"launches {launches}; card {card_s:.3f} s, CPU plain "
+                   f"{cpu_s:.3f} s ({card}); bitwise equal to the batch "
+                   f"store's outputs; max |card - CPU| per plane (limit "
+                   f"{CARD_ATOL} + {CARD_RTOL} |CPU|, headings wrapped): "
+                   + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        gpu.process_batch(live_tasks)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    busy = _device_busy(prof)
+    busy_ms = sum(busy.values())
+    if busy_ms > 0:
+        top = sorted(busy.items(), key=lambda kv: -kv[1])[:4]
+        say("serving", f"profiled live-store pass {prof_s * 1e3:.1f} ms "
+                       f"wall, device busy {busy_ms:.3f} ms (idle share "
+                       f"{1 - busy_ms / (prof_s * 1e3):.4f}; {card}); top: "
+                       + "; ".join(f"{k[:40]} {v:.3f} ms" for k, v in top))
+    else:
+        say("serving", "profiler saw no device time: idle share not "
+                       "measured")
+    total = time.perf_counter() - t_phase
+    say("serving", f"phase 9 in {total:.3f}s")
+    return {"launches": launches, "shapes": shapes, "total_s": total}
+
+
 def rel_diff(a, b) -> float:
     return ((a.float() - b.float()).abs().max()
             / (b.float().abs().max() + 1e-6)).item()
@@ -2198,11 +2447,13 @@ def main() -> int:
     flash = phase_flash()
     lm = phase_lm()
     bench = phase_bench()
+    serving = phase_serving(card, globe)
     top_shapes = phase_workflow_shapes({"zip workflow": zip_shapes,
                                         "store+screen workflow":
                                             screen_shapes,
                                         "store+screen DAG": dag_shapes,
-                                        **bench["shapes"]})
+                                        **bench["shapes"],
+                                        "live store": serving["shapes"]})
 
     from repro_torch.kernels import _build
     sources = {"track_interp": "track_interp.cu",
@@ -2235,6 +2486,7 @@ def main() -> int:
             "launches_dag_workflow": dag_launches[name],
             "launches_bench": {kind: n[name] for kind, n in
                                bench["launches"].items()},
+            "launches_live_store": serving["launches"][name],
         })
         if name in SHAPED:
             rows[-1]["plan"] = top["plan"]

@@ -26,6 +26,9 @@ every beyond-paper claim — declarative, diffable and regression-gated:
     encounter_screen kernel);
   * :mod:`repro_torch.bench.scheduling` — scheduling-policy matrix
     (``BENCH_scheduling.json``; host work);
+  * :mod:`repro_torch.bench.serving` — continuous-ingest serving matrix
+    (``BENCH_serving.json``, ``python -m repro_torch.bench.serving``;
+    host work: the live store and its query front end);
   * :mod:`repro_torch.bench.compare` — regression-diff two artifacts
     (dispatches on the ``schema`` field; a reference artifact and a port
     artifact of one kind diff against each other);
@@ -34,11 +37,12 @@ every beyond-paper claim — declarative, diffable and regression-gated:
     imported by its own name: it imports :mod:`repro_torch.obs`, which
     imports this package's schema.
 
-Every runner takes a campaign-level ``device`` (``None`` is the card and
-raises without one; ``'cpu'`` runs the kernels' plain versions) and
-records it in the artifact's ``environment``.  The reference's
-continuous-ingest serving bench (``bench/serving.py``) is not ported
-yet: it needs the serving ingest module and service.
+Every runner that reaches a kernel takes a campaign-level ``device``
+(``None`` is the card and raises without one; ``'cpu'`` runs the
+kernels' plain versions) and records it in the artifact's
+``environment``.  The serving bench does no tensor work: it takes no
+``device`` and records the host (python, platform) as the reference
+does.
 """
 
 from repro_torch.bench.beyond import beyond_scenarios
@@ -56,6 +60,9 @@ from repro_torch.bench.schema import (
     CAMPAIGN_SCHEMA, KERNELS_SCHEMA, SMOKE_SCHEMA, STORAGE_SCHEMA,
     canonical_bytes, validate_campaign, validate_kernels,
     validate_record, validate_storage)
+from repro_torch.bench.serving import (
+    ServingScenario, ServingSpec, run_serving_campaign,
+    run_serving_scenario, serving_scenarios)
 from repro_torch.bench.storage import (
     StorageScenario, StorageSpec, run_storage_campaign,
     run_storage_scenario, storage_scenarios)
@@ -71,6 +78,8 @@ __all__ = [
     "run_kernel_campaign", "run_kernel_scenario",
     "StorageScenario", "StorageSpec", "storage_scenarios",
     "run_storage_campaign", "run_storage_scenario",
+    "ServingScenario", "ServingSpec", "serving_scenarios",
+    "run_serving_campaign", "run_serving_scenario",
     "CAMPAIGN_SCHEMA", "KERNELS_SCHEMA", "SMOKE_SCHEMA",
     "STORAGE_SCHEMA",
     "canonical_bytes", "validate_campaign", "validate_kernels",

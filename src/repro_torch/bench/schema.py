@@ -68,10 +68,11 @@ share, so an artifact of either validates and diffs the same way
 producers named above belong to the reference; the port writes the
 campaign, kernels, storage, scheduling and encounters artifacts from
 ``python -m repro_torch.bench.{campaign,kernels,storage,scheduling,
-encounters}`` and the obs artifacts (:mod:`repro_torch.bench.obs`,
-:func:`repro_torch.obs.write_trace_files`), but no serving artifact
-(its bench is not ported yet).  A port artifact's ``environment`` also
-names the device it ran on (and a card's name and power limit).
+encounters,serving}`` and the obs artifacts (:mod:`repro_torch.bench.obs`,
+:func:`repro_torch.obs.write_trace_files`).  A port artifact's
+``environment`` also names the device it ran on (and a card's name and
+power limit), except the serving artifact's: host work, it records the
+host (python, platform) as the reference does.
 """
 
 from __future__ import annotations

@@ -7,7 +7,7 @@ compare tooling diffs:
   * headline ``scenario.metrics`` — critical-path seconds, straggler
     count, exec p99/p50 ratio, makespan — shaped so the reference's
     ``repro.bench.compare`` reads them through its single-``scenario``
-    path (the smoke-doc shape; the port's compare is not ported yet);
+    path (the smoke-doc shape);
   * per-phase critical paths and fitted cost models;
   * per-worker busy time and *speed estimates* (estimated cost over
     actual cost — the ``worker_speed`` input the ROADMAP's speculation

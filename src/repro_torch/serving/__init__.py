@@ -1,10 +1,22 @@
-"""Serving: batched decode requests (port of ``repro/serving``).
+"""Serving: batched decode requests and continuous-ingest store queries
+(port of ``repro/serving``).
 
-:class:`BatchedServer` runs prefill + cached decode with fixed-slot
-continuous batching (``server.py``).  The reference's continuous-ingest
-store front end (``ingest.py``, ``service.py``) waits for a later slice.
+Two front ends share the fixed-slot admission discipline:
+
+* :class:`BatchedServer` — prefill + cached decode with request
+  batching (``server.py``), on the card unless told otherwise.
+* :class:`StoreFrontEnd` — tiny ``latest``/``nearest`` lookups and
+  generation-pinned bulk snapshot reads over a store that
+  :class:`IngestService` is appending to live (``ingest.py`` /
+  ``service.py``).  This path is numpy and file I/O: it takes no
+  ``device`` and never touches CUDA.
 """
 
 from repro_torch.serving.server import BatchedServer, Request
+from repro_torch.serving.ingest import (
+    FeedSpec, IngestService, ServiceKilled, SyntheticFeed)
+from repro_torch.serving.service import Query, StoreFrontEnd, snapshot_digest
 
-__all__ = ["BatchedServer", "Request"]
+__all__ = ["BatchedServer", "FeedSpec", "IngestService", "Query",
+           "Request", "ServiceKilled", "StoreFrontEnd", "SyntheticFeed",
+           "snapshot_digest"]

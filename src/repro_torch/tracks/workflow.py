@@ -31,7 +31,14 @@ multi-row cell becomes a self-scheduled task running the pairwise
 miss-distance kernel (:mod:`repro_torch.kernels.encounter_screen`), with
 the deduplicated candidate encounters written to ``candidates.json``.
 
+``--serve`` (:func:`run_serve`) runs the continuous-ingest serving
+mode instead: a synthetic live feed tailed into the store through the
+service DAG (:class:`repro_torch.serving.IngestService`), then queries
+through :class:`repro_torch.serving.StoreFrontEnd`.  It is host work
+and runs without a card and without ``--device``.
+
 CLI:  PYTHONPATH=src python -m repro_torch.tracks.workflow
+      PYTHONPATH=src python -m repro_torch.tracks.workflow --serve --files 12
       PYTHONPATH=src python -m repro_torch.tracks.workflow --device cpu \\
           --backend processes --input store --screen
       PYTHONPATH=src python -m repro_torch.tracks.workflow --device cpu \\
@@ -72,12 +79,6 @@ from repro_torch.tracks.segments import (
     _STORE_BYTES_PER_POINT, SegmentProcessor,
     segment_tasks_from_archive_tree, segment_tasks_from_store,
     split_segments)
-
-#: Workflow modes of the reference that later slices of the port bring.
-NOT_PORTED = {
-    "--serve": "the serving slice (repro.serving)",
-}
-
 
 @dataclasses.dataclass
 class PhaseReport:
@@ -913,6 +914,51 @@ class TrackWorkflow:
         return self.reports
 
 
+def run_serve(root: str, *, n_files: int = 12, obs_per_file: int = 64,
+              seed: int = 0, n_workers: int = 4,
+              target_points: int = 2048, backend: str = "threads",
+              feed_batch: int = 3, tracer=None) -> dict:
+    """Continuous-ingest serving demo: live feed -> service DAG ->
+    queries -> sealed store.  Returns a JSON-able summary (also the CI
+    smoke surface).  ``tracer`` captures the full serving telemetry:
+    ingest lifecycle, DAG admissions, build/commit spans, and front-end
+    query spans on one timeline.  Host work only: no ``device``, and
+    CUDA is never touched."""
+    from repro_torch.serving import (
+        FeedSpec, IngestService, Query, StoreFrontEnd, SyntheticFeed)
+
+    feed_dir = os.path.join(root, "feed")
+    store_dir = os.path.join(root, "store_live")
+    os.makedirs(feed_dir, exist_ok=True)
+    feed = SyntheticFeed(feed_dir, FeedSpec(
+        n_files=n_files, obs_per_file=obs_per_file, seed=seed))
+    svc = IngestService(feed_dir, store_dir, target_points=target_points,
+                        tracer=tracer)
+
+    def stop_when() -> bool:
+        if not feed.exhausted:
+            feed.emit(feed_batch)
+            return False
+        return not svc.scan()
+
+    result = svc.run_service(backend=backend, n_workers=n_workers,
+                             stop_when=stop_when)
+    front = StoreFrontEnd(svc)
+    queries = [Query(1, "nearest", {"lat": 39.0, "lon": -98.0}),
+               Query(2, "snapshot", {"digest": True})]
+    done = {q.query_id: q for q in front.serve(queries)}
+    return {
+        "files_ingested": svc.stats["files_accepted"],
+        "shards_committed": svc.stats["shards_committed"],
+        "points_ingested": svc.stats["points_ingested"],
+        "generation": svc.generation,
+        "retained_tracks": len(svc.retained),
+        "nearest_track": (done[1].result or {}).get("track_id"),
+        "snapshot": done[2].result,
+        "job_seconds": result.job_seconds,
+    }
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(
         description="Run the organize->archive->process track workflow "
@@ -976,23 +1022,19 @@ def main(argv=None) -> None:
     ap.add_argument("--screen-cell-deg", type=float, default=0.25,
                     help="spatial-hash cell width (degrees; must divide "
                          "360)")
+    ap.add_argument("--serve", action="store_true",
+                    help="continuous-ingest mode: tail a synthetic live "
+                         "feed into the store via the service DAG and "
+                         "answer queries against the growing store "
+                         "(host work; --device does not apply)")
     ap.add_argument("--trace", default=None, metavar="DIR",
                     help="write observability artifacts to DIR: "
                          "trace.json (Chrome/Perfetto trace of every "
-                         "phase and store read) and TRACE_summary.json "
-                         "(canonical repro.obs/v1 summary; feed either "
-                         "file to `python -m repro_torch.obs.report`)")
-    # Reference modes that later slices bring; accepted only to be
-    # rejected with the slice's name.
-    ap.add_argument("--serve", action="store_true",
-                    help="not ported yet: " + NOT_PORTED["--serve"])
+                         "phase, store read, and serving event) and "
+                         "TRACE_summary.json (canonical repro.obs/v1 "
+                         "summary; feed either file to "
+                         "`python -m repro_torch.obs.report`)")
     args = ap.parse_args(argv)
-
-    asked = {"--serve": args.serve}
-    for flag, on in asked.items():
-        if on:
-            ap.error(f"{flag} is not ported yet: it waits for "
-                     f"{NOT_PORTED[flag]}")
     if args.manager_shards < 1:
         ap.error("--manager-shards must be >= 1")
 
@@ -1000,6 +1042,33 @@ def main(argv=None) -> None:
     if args.trace:
         from repro_torch.obs import Tracer
         tracer = Tracer()
+
+    def _write_trace(label: str) -> None:
+        if tracer is None:
+            return
+        from repro_torch.obs import write_trace_files
+        paths = write_trace_files(tracer, args.trace, label=label)
+        print(f"trace: {len(tracer)} events -> {paths['trace']}, "
+              f"summary -> {paths['summary']}")
+
+    if args.serve:
+        summary = run_serve(args.root, n_files=args.files,
+                            n_workers=args.workers,
+                            backend=args.backend,
+                            target_points=(args.store_target_points
+                                           or 2048),
+                            tracer=tracer)
+        print(f"serve: ingested {summary['files_ingested']} files into "
+              f"{summary['shards_committed']} shards "
+              f"({summary['points_ingested']} points, generation "
+              f"{summary['generation']}) in "
+              f"{summary['job_seconds']:.2f}s; "
+              f"{summary['retained_tracks']} tracks retained")
+        print(f"serve: nearest(39,-98) -> {summary['nearest_track']}, "
+              f"snapshot digest {summary['snapshot']['digest'][:16]}... "
+              f"({summary['snapshot']['n_tracks']} tracks)")
+        _write_trace("serve")
+        return
 
     triple = None
     if args.nodes is not None:
@@ -1036,11 +1105,7 @@ def main(argv=None) -> None:
             n = len(json.load(f)["candidates"])
         print(f"screen    : {n} candidate encounters -> "
               f"{wf.candidates_path}")
-    if tracer is not None:
-        from repro_torch.obs import write_trace_files
-        paths = write_trace_files(tracer, args.trace, label=args.pipeline)
-        print(f"trace: {len(tracer)} events -> {paths['trace']}, "
-              f"summary -> {paths['summary']}")
+    _write_trace(args.pipeline)
 
 
 if __name__ == "__main__":

@@ -1095,3 +1095,37 @@ def test_smoke_processes_cell_after_a_kernel_launch(dev):
     assert rec["status"] == "pass", (rec["error"], rec["checks"])
     assert rec["metrics"]["tasks_completed"] == 200
     assert rec["metrics"]["backend"] == "processes"
+
+
+def test_live_ingested_store_on_card_matches_batch_store(dev, tmp_path):
+    """The serving mode's sealed live store, processed on the card, gives
+    bitwise the outputs of a batch build of the same feed (the bytes in
+    are identical), through all three process kernels."""
+    from repro_torch.geometry.aerodromes import synthetic_aerodromes
+    from repro_torch.store.writer import build_store
+    from repro_torch.tracks.segments import (
+        SegmentProcessor, segment_tasks_from_store)
+    from repro_torch.tracks.workflow import run_serve
+    root = str(tmp_path / "serve")
+    summary = run_serve(root, n_files=48, obs_per_file=128,
+                        target_points=1024, feed_batch=8, n_workers=2)
+    assert summary["files_ingested"] == summary["retained_tracks"] == 48
+    batch = str(tmp_path / "batch")
+    build_store(os.path.join(root, "feed"), batch, target_points=1024)
+    proc = SegmentProcessor(aerodromes=synthetic_aerodromes(n=64))
+    before = {m: m.launches for m in (interp_mod, agl_mod, rates_mod)}
+    live_out = proc.process_batch(segment_tasks_from_store(
+        os.path.join(root, "store_live")))
+    assert all(m.launches > n for m, n in before.items())
+    batch_out = proc.process_batch(segment_tasks_from_store(batch))
+    assert list(live_out) == list(batch_out) and len(live_out) > 1
+    for task_id, by_track in batch_out.items():
+        assert list(live_out[task_id]) == list(by_track)
+        for tid, w in by_track.items():
+            g = live_out[task_id][tid]
+            assert g.icao24 == w.icao24 and g.airspace == w.airspace
+            for attr in ("count", "times", "lat", "lon", "alt_msl_m",
+                         "alt_agl_m", "vrate_ms", "gspeed_ms",
+                         "heading_rad", "turn_rad_s"):
+                assert getattr(g, attr).tobytes() \
+                    == getattr(w, attr).tobytes(), (tid, attr)

@@ -11,8 +11,11 @@ tuple for tuple, virtual ``ts`` and ``dur`` included, and summaries whose
 ``canonical_bytes`` are identical.  The exporters (Perfetto docs,
 ``from_chrome_trace``, ``render_report`` lines), the schema validators
 (valid and broken docs) and the store reader's spans on a fake clock
-agree with the reference's too.  Everything passes between the two
-packages as plain Python data or JSON.
+agree with the reference's too, and so do the serving events on an
+injected clock: the ingest lifecycle, the store reader over a store the
+ingest service committed, and the query front end's admissions,
+rejections and spans.  Everything passes between the two packages as
+plain Python data or JSON.
 """
 
 from __future__ import annotations
@@ -497,3 +500,108 @@ def test_untraced_store_reads_the_same(stores):
     traced = [b.track_ids for b in TrackStore(
         stores["port"], tracer=Tracer()).iter_batches()]
     assert plain == traced and plain
+
+
+# ---------------------------------------------------------------------------
+# Serving spans on a fake clock (tests/test_obs.py:203-275).
+# ---------------------------------------------------------------------------
+
+def _served(pkg, root):
+    """A small store built through each package's serving ingest path,
+    traced on a tick clock."""
+    import os
+    serving = __import__(("repro_torch" if pkg == "port" else "repro")
+                         + ".serving", fromlist=["IngestService"])
+    feed_dir, store_dir = str(root / "feed"), str(root / "store")
+    os.makedirs(feed_dir)
+    feed = serving.SyntheticFeed(feed_dir, serving.FeedSpec(
+        n_files=8, obs_per_file=48, seed=3))
+    tr = PACKAGES[pkg][0].Tracer(clock=_TickClock())
+    svc = serving.IngestService(feed_dir, store_dir, target_points=96,
+                                tracer=tr)
+    feed.emit_all()
+    svc.poll_once()
+    manifest = svc.seal()
+    return {"serving": serving, "svc": svc, "tracer": tr,
+            "store": store_dir, "manifest": manifest}
+
+
+@pytest.fixture()
+def served(tmp_path):
+    return {pkg: _served(pkg, tmp_path / pkg) for pkg in PACKAGES}
+
+
+def _summary_bytes(pkg, tr, label):
+    obs, schema = PACKAGES[pkg][0], PACKAGES[pkg][5]
+    return schema.canonical_bytes(obs.summary_from_tracer(tr, label=label))
+
+
+def test_ingest_lifecycle_events_equal_reference(served):
+    got, want = served["port"]["tracer"], served["jax"]["tracer"]
+    assert got.events == want.events
+    assert _summary_bytes("port", got, "ingest") \
+        == _summary_bytes("jax", want, "ingest")
+    serving = [e for e in got.events if e[3] == "serving"]
+    assert {"ingest_scan", "ingest_cut", "ingest_build", "ingest_commit",
+            "ingest_seal"} <= {e[2] for e in serving}
+    builds = [e for e in serving if e[2] == "ingest_build"]
+    commits = [e for e in serving if e[2] == "ingest_commit"]
+    assert len(builds) == len(commits) \
+        == len(served["port"]["manifest"].shards) > 1
+    assert all(e[1] > 0.0 for e in builds + commits)
+    assert all(0.0 < e[0] <= got.clock.t for e in serving)
+
+
+def test_served_store_reader_spans_equal_reference(served):
+    from repro.store.reader import TrackStore as JaxTrackStore
+    from repro_torch.store.reader import TrackStore
+    events, counts = {}, {}
+    for pkg, cls in (("port", TrackStore), ("jax", JaxTrackStore)):
+        tr = PACKAGES[pkg][0].Tracer(clock=_ThreadTickClock())
+        store = cls(served[pkg]["store"], tracer=tr)
+        counts[pkg] = len(list(store.iter_batches(prefetch=2)))
+        events[pkg] = tr.events
+
+    def key(e):
+        return tuple(str(x) for x in e)
+
+    n = len(served["port"]["manifest"].shards)
+    assert counts["port"] == counts["jax"] == n > 1
+    assert sorted(events["port"], key=key) == sorted(events["jax"], key=key)
+    decodes = [e for e in events["port"] if e[2] == "store_decode"]
+    assert {e[4] for e in decodes} \
+        == {s.shard_id for s in served["port"]["manifest"].shards}
+    assert all(isinstance(e[6], int) and e[6] > 0 for e in decodes)
+    assert sum(1 for e in events["port"] if e[2] == "store_prefetch") == n
+
+
+def test_frontend_query_events_equal_reference(served):
+    out = {}
+    for pkg in PACKAGES:
+        svc, tr = served[pkg]["svc"], served[pkg]["tracer"]
+        serving = served[pkg]["serving"]
+        front = serving.StoreFrontEnd(svc, tiny_slots=1)
+        assert front.tracer is tr
+        tid = sorted(svc.retained)[0]
+        q1 = serving.Query(1, "latest", {"track_id": tid})
+        q2 = serving.Query(2, "latest", {"track_id": tid})
+        q3 = serving.Query(3, "snapshot", {"digest": True})
+        admitted = (front.admit(q1), front.admit(q2), front.admit(q3))
+        front.step()
+        done = front.serve([q2])
+        while q3.done is False:
+            front.step()
+        out[pkg] = {"admitted": admitted, "events": list(tr.events),
+                    "results": (q1.result, done[0].result, q3.result),
+                    "stats": dict(front.stats),
+                    "summary": _summary_bytes(pkg, tr, "serve")}
+    assert out["port"] == out["jax"]
+    events = out["port"]["events"]
+    names = [(e[2], e[5]) for e in events if e[4] == "frontend"]
+    assert ("query_admit", "latest:1") in names
+    assert ("query_reject", "latest:2") in names
+    spans = [e for e in events if e[2] == "query" and e[5] == "latest:1"]
+    assert len(spans) == 1 and spans[0][1] > 0.0
+    # The pinned snapshot read's shard decodes sit on the same timeline.
+    assert sum(1 for e in events if e[2] == "store_decode") \
+        == len(served["port"]["manifest"].shards)

@@ -4,7 +4,8 @@ The copied runtime must dispatch exactly as the reference's; the copied
 dataset writer must write the same bytes; and full workflow runs of
 the port (zip input, and store input with the screen phase), in a fresh
 interpreter that imports only ``repro_torch``, must leave JAX and every
-``repro`` module unimported.
+``repro`` module unimported; a ``--serve`` run must also leave CUDA
+uninitialised.
 """
 
 import json
@@ -139,6 +140,50 @@ def test_port_workflow_runs_without_jax(tmp_path, backend):
     assert doc["screen_tasks"] > 0 and doc["candidates"] > 0
     assert doc["dag_phases"] == ["dag"] and doc["dag_same"]
     assert doc["sim_tasks"] == 200
+    assert doc["foreign"] == []
+
+
+_SERVE_DRIVER = r"""
+import contextlib, io, json, sys
+import torch
+torch.set_num_threads(1)
+from repro_torch.tracks import workflow
+root, backend = sys.argv[1], sys.argv[2]
+summary = workflow.run_serve(root + "/api", n_files=12, n_workers=2,
+                             backend=backend)
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    workflow.main(["--root", root + "/cli", "--serve", "--files", "12",
+                   "--workers", "2", "--backend", backend])
+summary.pop("job_seconds")
+print(json.dumps({
+    "summary": summary,
+    "cli_lines": [ln for ln in out.getvalue().splitlines()
+                  if ln.startswith("serve: ")],
+    "cuda_initialized": torch.cuda.is_initialized(),
+    "foreign": sorted(m for m in sys.modules
+                      if m == "jax" or m.startswith(("jax.", "repro.")))
+                      + (["repro"] if "repro" in sys.modules else []),
+}))
+"""
+
+
+@pytest.mark.parametrize("backend", ["threads", "processes"])
+def test_port_serve_runs_without_jax_or_cuda(tmp_path, backend):
+    """``--serve`` is host work: no JAX, no ``repro`` module, and CUDA
+    never initialised, on threads and on processes workers."""
+    from repro.tracks.workflow import run_serve as jax_run_serve
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
+    proc = subprocess.run(
+        [sys.executable, "-c", _SERVE_DRIVER, str(tmp_path / "wf"),
+         backend], capture_output=True, text=True, env=env, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    doc = json.loads(proc.stdout.strip().splitlines()[-1])
+    want = jax_run_serve(str(tmp_path / "jax"), n_files=12, n_workers=2)
+    want.pop("job_seconds")
+    assert doc["summary"] == want
+    assert len(doc["cli_lines"]) == 2
+    assert doc["cuda_initialized"] is False
     assert doc["foreign"] == []
 
 

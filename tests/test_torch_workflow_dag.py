@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 
 import numpy as np
@@ -217,12 +218,9 @@ def test_cli_pipeline_dag(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "dag       :" in out and "candidate encounters" in out
     assert os.path.exists(os.path.join(root, "candidates.json"))
-    assert list(port_workflow.NOT_PORTED) == ["--serve"]
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--serve"], "--serve is not ported yet"),
-    (["--trace", "out", "--serve"], "--serve is not ported yet"),
     (["--pipeline", "dag", "--manager-shards", "0"],
      "--manager-shards must be >= 1"),
 ])
@@ -233,6 +231,48 @@ def test_cli_refusals(tmp_path, capsys, argv, message):
     assert exc.value.code == 2
     assert message in capsys.readouterr().err
     assert not os.path.exists(tmp_path / "x")
+
+
+def _serve_lines(out: str) -> list[str]:
+    """The two ``serve:`` lines, the job's seconds masked."""
+    return [re.sub(r" in [0-9.]+s;", " in Ts;", ln)
+            for ln in out.splitlines() if ln.startswith("serve: ")]
+
+
+@pytest.mark.parametrize("trace", [False, True], ids=["serve", "trace"])
+def test_cli_serve(tmp_path, capsys, trace):
+    """``--serve`` on the CPU with no ``--device``: the reference's two
+    summary lines, with equal values."""
+    from repro.tracks.workflow import run_serve as jax_run_serve
+    want = jax_run_serve(str(tmp_path / "jax"), n_files=12, n_workers=2,
+                         target_points=2048)
+    root, trace_dir = str(tmp_path / "port"), str(tmp_path / "trace")
+    port_workflow.main(["--root", root, "--serve", "--files", "12",
+                        "--workers", "2"]
+                       + (["--trace", trace_dir] if trace else []))
+    out = capsys.readouterr().out
+    lines = _serve_lines(out)
+    assert lines == [
+        f"serve: ingested {want['files_ingested']} files into "
+        f"{want['shards_committed']} shards ({want['points_ingested']} "
+        f"points, generation {want['generation']}) in Ts; "
+        f"{want['retained_tracks']} tracks retained",
+        f"serve: nearest(39,-98) -> {want['nearest_track']}, snapshot "
+        f"digest {want['snapshot']['digest'][:16]}... "
+        f"({want['snapshot']['n_tracks']} tracks)"]
+    assert os.path.exists(os.path.join(root, "store_live",
+                                       "store_manifest.json"))
+    traced = [ln for ln in out.splitlines() if ln.startswith("trace: ")]
+    if trace:
+        assert len(traced) == 1
+        assert sorted(os.listdir(trace_dir)) == ["TRACE_summary.json",
+                                                 "trace.json"]
+        with open(os.path.join(trace_dir, "TRACE_summary.json")) as f:
+            doc = json.load(f)
+        assert doc["config"]["label"] == "serve"
+        assert doc["config"]["n_events"] > 0
+    else:
+        assert traced == [] and not os.path.exists(trace_dir)
 
 
 def test_workflow_validates_dag_options(tmp_path):
