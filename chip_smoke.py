@@ -86,8 +86,11 @@ Phases, each printed as it runs:
              the six shapes of tests/test_flash_attention.py in f32
              (rtol/atol 2e-5), its bf16 case, stablelm-12b's heads (B =
              1, H = 32, KV = 8, hd = 160, T = S in {512, 2048, 4096}) in
-             bf16 and f32, and phase 7's own shape (B = 2, T = S = 2048,
-             bf16); a bf16 output within one bf16 rounding of the plain
+             bf16 and f32, phase 7's own shape (B = 2, T = S = 2048,
+             bf16) and phase 7b's forwards' shapes in bf16 (qwen3-moe
+             B = 1, H = 32, KV = 4, hd = 128; jamba KV = 8, hd = 128;
+             musicgen B = 2, H = KV = 24, hd = 64; T = S = 2048); a bf16
+             output within one bf16 rounding of the plain
              f32 one (rtol 2^-8, atol 1e-5).  Every bf16 shape must go
              through the tensor-core kernel (route "sm90") and every f32
              one through the CUDA-core kernel (route counters); each is
@@ -105,6 +108,31 @@ Phases, each printed as it runs:
              forward; BatchedServer (4 slots, prompt 64, cache 256): one
              warm-up request, then 3 rounds of 8 seeded requests of 16
              new tokens each, every round gated and timed on its own.
+7b. arms   — the LM's other arms at full width, random bf16 weights from
+             a seed, one model at a time (the previous one freed):
+             qwen3-moe-30b-a3b (48 MoE layers, 128 experts, top 8; 61.1
+             GB), rwkv6-3b (32 RWKV-6 layers), jamba-v0.1-52b cut to 16
+             of its 32 layers (Mamba + attention + MoE; 52.1 GB: the
+             whole model's 103.1 GB do not fit) and musicgen-medium on
+             seeded embeds.  Each: forward on B x 2048 with "flash" (the
+             counters zeroed just before and read just after: one sm90
+             launch per attention layer) and "xla"; each attention layer
+             fed the xla forward's input, flash against xla within 0.03;
+             each MoE, Mamba and RWKV-6 sublayer fed the bf16 forward's
+             input, bf16 against f32 on the same weights within 0.03;
+             prefill(64) + decode_step against forward(65) in f32 at
+             full width (depth cut to 8 layers for qwen3-moe and jamba,
+             whose f32 weights would not fit) within 0.05; the
+             whole-model bf16 comparisons gated for the dense musicgen
+             and printed for the rest (rounding flips MoE routes, and
+             compounds through RWKV-6's 32 layers, where each bf16 path
+             is also printed against its f32 twin);
+             BatchedServer (one warm-up request, 2 rounds of 4 requests
+             of 16 new tokens) for the token-input models, timed decode
+             steps for musicgen; parameters and GB on the card, tokens/s,
+             peak memory, decode step ms, device time by kernel and kind
+             of kernel, and for the MoE models by stage of the layer
+             (route, dispatch, experts, combine).
 8. bench   — the bench matrices of ``repro_torch.bench``: the campaign's
              quick tier (Tables I/II on the sim, in virtual seconds of the
              cost model, and the threads smoke), the kernels, storage and
@@ -249,6 +277,69 @@ LM_REL_GATE = 0.03               # flash vs xla logits, tests/test_flash_attenti
 LM_DECODE_T, LM_DECODE_GATE = 64, 0.05   # tests/test_models.py's gate
 SERVE = dict(slots=4, prompt_len=64, cache_len=256)
 SERVE_REQUESTS, SERVE_NEW, SERVE_ROUNDS = 8, 16, 3
+# Phase 7b: the LM's other arms at full width, one model at a time: MoE
+# layers (qwen3-moe), RWKV-6 blocks (rwkv6-3b), Mamba blocks with MoE
+# (jamba, cut to 16 of its 32 layers: its 103.1 GB of bf16 weights do
+# not fit the card's 80 GB) and a stubbed frontend's embeds input
+# (musicgen-medium).  Each model runs in its own bf16 dtypes at full
+# width; ``cut`` overrides its config, ``B`` is the forward's batch,
+# ``cf`` the capacity factor of prefill + decode vs forward (large
+# enough that no token drops, as tests/test_models.py runs it; None: the
+# config's), ``serve`` whether BatchedServer serves it (the reference
+# refuses frontends).
+#
+# Phase 7's whole-model gates (flash vs xla logits, prefill + decode vs
+# forward) hold in bf16 only where rounding does not compound past them:
+# a dense attention stack (``bf16_gates``).  With random weights, a
+# one-ulp difference flips a router's choice in the next MoE layer and,
+# through capacity ranks, other tokens' drops (qwen3-moe, jamba); over
+# RWKV-6's 32 layers the ulps compound that its two chunkings (32 tokens
+# in prefill(64), 13 in forward(65)) round apart.  The port's bf16
+# arithmetic is the reference's as written: at the reduced configs on
+# the CPU, RWKV-6's ddlerp steps are bitwise the reference's run op by
+# op, its mixers differ from it in under 1 % of their elements by under
+# one ulp, and the port's prefill + decode drifts from its forward no
+# further than the reference's run op by op does
+# (tests/test_torch_models.py::test_bf16_rwkv6_mixers_round_as_reference
+# and ::test_bf16_decode_drift_matches_reference).  The reference's
+# compiled form keeps bf16 intermediates in f32 inside XLA's fusions, so
+# its own drift is no witness: 1.4e-07 at one seed, 0.01 at another.
+# So these models hold each MoE, Mamba and RWKV-6 sublayer in bf16
+# against the same sublayer in f32 on the same input and weights,
+# flash against xla layer by layer, and prefill + decode against
+# forward in f32 at full width, with depth cut to ``f32_layers`` where
+# f32 weights would not fit.  The bf16 whole-model figures are printed;
+# where the f32 run keeps the full depth, its weights are the bf16
+# ones widened, and each bf16 path is printed against its f32 twin.
+LM_ARMS = (
+    dict(arch="qwen3-moe-30b-a3b", cut={}, B=1, cf=16.0, serve=True,
+         f32_layers=8, bf16_gates=False),
+    dict(arch="rwkv6-3b", cut={}, B=2, cf=None, serve=True,
+         f32_layers=None, bf16_gates=False),
+    dict(arch="jamba-v0.1-52b", cut={"n_layers": 16}, B=1, cf=8.0,
+         serve=True, f32_layers=8, bf16_gates=False),
+    dict(arch="musicgen-medium", cut={}, B=2, cf=None, serve=False,
+         f32_layers=None, bf16_gates=True),
+)
+ARMS_SERVE_REQUESTS, ARMS_SERVE_ROUNDS = 4, 2
+ARMS_DECODE_STEPS = 5            # timed decode steps where no server runs
+MOE_STAGES = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine")
+# A bf16 MoE, Mamba or RWKV-6 sublayer against the same sublayer in f32
+# on the same input and the same (widened) weights: the repo's bf16 gate,
+# but for RWKV-6's time mix, which reads 0.0302 at rwkv6-3b's width on an
+# H100 80GB HBM3 at 700 W.  Its decay (the exp of a cumulative sum) and
+# per-head group norm amplify the bf16 rounding of their inputs, in the
+# reference too: at the reduced config the reference's time mix run op
+# by op sits as far from its f32 twin as the port's does (0.0239 both;
+# tests/test_torch_models.py::test_bf16_rwkv6_mixers_round_as_reference).
+SUBLAYER_BF16_GATE = {"moe": LM_REL_GATE, "mamba": LM_REL_GATE,
+                      "rwkv6 channel mix": LM_REL_GATE,
+                      "rwkv6 time mix": 0.05}
+# Phase 6 also holds the kernel at phase 7b's forwards' own shapes:
+# qwen3-moe, jamba and musicgen heads at T = S = 2048.
+FLASH_ARMS_SHAPES = ((1, 32, 4, LM_T, LM_T, 128, True),
+                     (1, 32, 8, LM_T, LM_T, 128, True),
+                     (2, 24, 24, LM_T, LM_T, 64, True))
 # Screen tasks timed one after another, profiled, after the workflow.
 SCREEN_PROFILE_TASKS = 200
 # Card against CPU on the GLOBE batch: both run the same f32 operations
@@ -1546,6 +1637,7 @@ def phase_flash() -> dict:
     cases += [((1, 32, 8, T, T, 160, True), dt) for T in FLASH_LM_T
               for dt in (torch.bfloat16, torch.float32)]
     cases.append((FLASH_MAIN_PATH_SHAPE, torch.bfloat16))
+    cases += [(shape, torch.bfloat16) for shape in FLASH_ARMS_SHAPES]
     res = {"per_shape": {}, "max_abs_err": 0.0}
     for (B, H, KV, T, S, hd, causal), dt in cases:
         q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
@@ -2210,6 +2302,95 @@ def rel_diff(a, b) -> float:
             / (b.float().abs().max() + 1e-6)).item()
 
 
+def serve_and_profile(tag: str, cfg, params, rng, n_requests: int,
+                      n_rounds: int) -> dict:
+    """BatchedServer (``SERVE``'s slots and lengths) on the card: one
+    warm-up request, then ``n_rounds`` gated rounds of ``n_requests``
+    seeded requests of ``SERVE_NEW`` new tokens, each timed on its own,
+    then one engine step under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import BatchedServer, Request
+
+    class TimedServer(BatchedServer):
+        """Times each admit (prefill) and engine step; both end in a host
+        read of the argmax, so the host clock sees the device finish."""
+        def admit(self, req):
+            t0 = time.perf_counter()
+            ok = super().admit(req)
+            if ok:
+                self.admit_s.append(time.perf_counter() - t0)
+            return ok
+
+        def step(self):
+            t0 = time.perf_counter()
+            super().step()
+            self.step_s.append(time.perf_counter() - t0)
+
+    server = TimedServer(cfg, params, device=torch.device("cuda"), **SERVE)
+    ids = iter(range(1 + n_requests * n_rounds))
+
+    def requests(n):
+        out = []
+        for _ in range(n):
+            P = int(rng.integers(16, SERVE["prompt_len"] + 1))
+            out.append(Request(next(ids), rng.integers(0, cfg.vocab_size, P),
+                               max_new_tokens=SERVE_NEW))
+        return out
+
+    # One request outside the timed rounds: the first prefill and decode
+    # at these shapes choose their cuBLAS algorithms and grow the cache
+    # allocator.
+    server.admit_s, server.step_s = [], []
+    server.serve(requests(1))
+    rounds = []
+    for _ in range(n_rounds):
+        server.admit_s, server.step_s = [], []
+        steps0 = server.steps
+        reqs = requests(n_requests)
+        t0 = time.perf_counter()
+        server.serve(reqs)
+        serve_s = time.perf_counter() - t0
+        if not all(r.done and len(r.tokens_out) == SERVE_NEW for r in reqs):
+            raise AssertionError(f"requests unfinished: "
+                                 f"{[len(r.tokens_out) for r in reqs]}")
+        if not all(0 <= t < cfg.vocab_size
+                   for r in reqs for t in r.tokens_out):
+            raise AssertionError("a token outside the vocabulary")
+        n_out = sum(len(r.tokens_out) for r in reqs)
+        rounds.append({"tokens_per_s": n_out / serve_s,
+                       "step_ms": statistics.median(server.step_s) * 1e3,
+                       "admit_ms": statistics.median(server.admit_s) * 1e3})
+        say(tag, f"BatchedServer {SERVE}, round {len(rounds)}: "
+                 f"{len(reqs)} requests, {n_out} tokens in {serve_s:.3f}s "
+                 f"({rounds[-1]['tokens_per_s']:.1f} tokens/s), "
+                 f"{server.steps - steps0} engine steps, decode step "
+                 f"{rounds[-1]['step_ms']:.1f} ms (median; first "
+                 f"{server.step_s[0] * 1e3:.1f} ms), admit (prefill of "
+                 f"one prompt + splice) {rounds[-1]['admit_ms']:.1f} ms "
+                 f"(median)")
+    step_ms = [r["step_ms"] for r in rounds]
+    say(tag, f"decode step over {n_rounds} rounds: median "
+             f"{statistics.median(step_ms):.1f} ms, spread (max - min) / "
+             f"min {(max(step_ms) - min(step_ms)) / min(step_ms):.3f}")
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        server.step()
+        step_prof_s = time.perf_counter() - t0
+    busy = _device_busy(prof)
+    top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
+    busy_ms = sum(busy.values())
+    say(tag, f"profiled decode step {step_prof_s * 1e3:.1f} ms wall, "
+             f"device busy {busy_ms:.1f} ms (idle share "
+             f"{1 - busy_ms / (step_prof_s * 1e3):.4f}); top: " + "; ".join(
+                 f"{k[:48]} {v:.1f} ms" for k, v in top))
+    return {"rounds": rounds, "step_ms": statistics.median(step_ms),
+            "step_busy_ms": busy_ms,
+            "tokens_per_s": statistics.median(r["tokens_per_s"]
+                                              for r in rounds)}
+
+
 def phase_lm() -> dict:
     """stablelm-12b at full width and depth on the card, through the
     port's forward, prefill/decode_step and BatchedServer."""
@@ -2220,7 +2401,6 @@ def phase_lm() -> dict:
     from repro_torch.configs import get_arch
     from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.models import model as M
-    from repro_torch.serving import BatchedServer, Request
 
     dev = torch.device("cuda")
     cfg = get_arch(LM_ARCH)
@@ -2316,84 +2496,385 @@ def phase_lm() -> dict:
         raise AssertionError(f"decode disagrees with forward: rel {rel_dec}")
     del cache, dec, full
 
-    class TimedServer(BatchedServer):
-        """Times each admit (prefill) and engine step; both end in a host
-        read of the argmax, so the host clock sees the device finish."""
-        def admit(self, req):
-            t0 = time.perf_counter()
-            ok = super().admit(req)
-            if ok:
-                self.admit_s.append(time.perf_counter() - t0)
-            return ok
-
-        def step(self):
-            t0 = time.perf_counter()
-            super().step()
-            self.step_s.append(time.perf_counter() - t0)
-
-    server = TimedServer(cfg, params, device=dev, **SERVE)
-    ids = iter(range(1 + SERVE_REQUESTS * SERVE_ROUNDS))
-
-    def requests(n):
-        out = []
-        for _ in range(n):
-            P = int(rng.integers(16, SERVE["prompt_len"] + 1))
-            out.append(Request(next(ids), rng.integers(0, cfg.vocab_size, P),
-                               max_new_tokens=SERVE_NEW))
-        return out
-
-    # One request outside the timed rounds: the first prefill and decode
-    # at these shapes choose their cuBLAS algorithms and grow the cache
-    # allocator.
-    server.admit_s, server.step_s = [], []
-    server.serve(requests(1))
-    rounds = []
-    for _ in range(SERVE_ROUNDS):
-        server.admit_s, server.step_s = [], []
-        steps0 = server.steps
-        reqs = requests(SERVE_REQUESTS)
-        t0 = time.perf_counter()
-        server.serve(reqs)
-        serve_s = time.perf_counter() - t0
-        if not all(r.done and len(r.tokens_out) == SERVE_NEW for r in reqs):
-            raise AssertionError(f"requests unfinished: "
-                                 f"{[len(r.tokens_out) for r in reqs]}")
-        if not all(0 <= t < cfg.vocab_size
-                   for r in reqs for t in r.tokens_out):
-            raise AssertionError("a token outside the vocabulary")
-        n_out = sum(len(r.tokens_out) for r in reqs)
-        rounds.append({"tokens_per_s": n_out / serve_s,
-                       "step_ms": statistics.median(server.step_s) * 1e3,
-                       "admit_ms": statistics.median(server.admit_s) * 1e3})
-        say("lm", f"BatchedServer {SERVE}, round {len(rounds)}: "
-                  f"{len(reqs)} requests, {n_out} tokens in {serve_s:.3f}s "
-                  f"({rounds[-1]['tokens_per_s']:.1f} tokens/s), "
-                  f"{server.steps - steps0} engine steps, decode step "
-                  f"{rounds[-1]['step_ms']:.1f} ms (median; first "
-                  f"{server.step_s[0] * 1e3:.1f} ms), admit (prefill of "
-                  f"one prompt + splice) {rounds[-1]['admit_ms']:.1f} ms "
-                  f"(median)")
-    step_ms = [r["step_ms"] for r in rounds]
-    say("lm", f"decode step over {SERVE_ROUNDS} rounds: median "
-              f"{statistics.median(step_ms):.1f} ms, spread (max - min) / "
-              f"min {(max(step_ms) - min(step_ms)) / min(step_ms):.3f}")
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        server.step()
-        step_prof_s = time.perf_counter() - t0
-    busy = _device_busy(prof)
-    top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
-    busy_ms = sum(busy.values())
-    say("lm", f"profiled decode step {step_prof_s * 1e3:.1f} ms wall, "
-              f"device busy {busy_ms:.1f} ms (idle share "
-              f"{1 - busy_ms / (step_prof_s * 1e3):.4f}); top: " + "; ".join(
-                  f"{k[:48]} {v:.1f} ms" for k, v in top))
-    del server, params
+    serve_and_profile("lm", cfg, params, rng, SERVE_REQUESTS, SERVE_ROUNDS)
+    del params
     torch.cuda.empty_cache()
     return {"launches": launches, "launches_by_route": by_route,
             "forward_tokens_per_s": n_tok / flash_s,
             "forward_flash_share": flash_share}
+
+
+def layerwise_flash_vs_xla(cfg, params, batch) -> tuple[float, int]:
+    """Each attention sublayer of an xla forward, fed the xla forward's
+    own input to it, against the flash kernel on that same input: the
+    worst max|flash - xla| / max|xla| over the layers, and how many
+    layers were held.  Unlike the logits, this does not pass through
+    the MoE routers, which turn a rounding difference in one layer into
+    another expert choice in the next."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    x = M.encode_inputs(cfg, params, batch)
+    worst, n = 0.0, 0
+    kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+              head_dim=cfg.head_dim_, theta=cfg.rope_theta,
+              window=cfg.sliding_window)
+    for sb in range(cfg.n_superblocks):
+        block = M._index(params["blocks"], sb)
+        for i, kind in enumerate(cfg.block_pattern):
+            p = block[f"s{i}"]
+            if kind == "attn":
+                h = L.rms_norm(x, p["norm1"], cfg.rms_eps)
+                want = L.attention_train(h, p["mixer"], impl="xla", **kw)
+                got = L.attention_train(h, p["mixer"], impl="flash", **kw)
+                worst, n = max(worst, rel_diff(got, want)), n + 1
+                del h, want, got
+            x = M._apply_sublayer(
+                cfg, kind, cfg.is_moe_layer(sb * cfg.pattern_period + i), p,
+                x)
+    return worst, n
+
+
+def layerwise_bf16_vs_f32(cfg, params, batch) -> dict:
+    """Each MoE feed-forward, Mamba mixer and RWKV-6 time and channel mix
+    of a bf16 forward (xla attention), fed that forward's own input to
+    it, against the same function in f32 on the same input and on the
+    bf16 weights widened to f32: {kind: (worst max|bf16 - f32| /
+    max|f32|, sublayers held)}.  The router's weights are f32 and its
+    input the same values in both, so no route flips, and one layer's
+    rounding does not pass on to the next."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm as S
+
+    worst: dict = {}
+
+    def held(what, fn, h, p):
+        got = fn(h, p)
+        p32 = _widened(p)
+        rel = rel_diff(got, fn(h.float(), p32))
+        del p32
+        w, n = worst.get(what, (0.0, 0))
+        worst[what] = (max(w, rel), n + 1)
+        return got
+
+    x = M.encode_inputs(cfg, params, batch)
+    for sb in range(cfg.n_superblocks):
+        block = M._index(params["blocks"], sb)
+        for i, kind in enumerate(cfg.block_pattern):
+            p = block[f"s{i}"]
+            is_moe = cfg.is_moe_layer(sb * cfg.pattern_period + i)
+            h = L.rms_norm(x, p["norm1"], cfg.rms_eps)
+            if kind == "mamba":
+                mix = held("mamba", lambda a, q: S.mamba_train(
+                    a, q, d_state=cfg.d_state), h, p["mixer"])
+            elif kind == "rwkv6":
+                mix = held("rwkv6 time mix", lambda a, q: S.rwkv6_time_mix(
+                    a, q, head_dim=cfg.rwkv_head_dim), h, p["mixer"])
+            else:
+                mix = L.attention_train(
+                    h, p["mixer"], n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                    head_dim=cfg.head_dim_, theta=cfg.rope_theta,
+                    window=cfg.sliding_window, impl="xla")
+            h = L.rms_norm(x + mix, p["norm2"], cfg.rms_eps)
+            if kind == "rwkv6":
+                held("rwkv6 channel mix", S.rwkv6_channel_mix, h, p["ffn"])
+            elif is_moe:
+                held("moe", lambda a, q: M._moe(cfg, q, a), h, p["ffn"])
+            del h, mix
+            x = M._apply_sublayer(cfg, kind, is_moe, p, x)
+    return worst
+
+
+def decode_vs_forward(cfg, params, head: dict) -> tuple:
+    """prefill(T) + decode_step against forward(T + 1)'s last logits,
+    ``head`` holding the T + 1 inputs: (rel, the decode's logits, the
+    forward's logits at T), the logits in f32."""
+    from repro_torch.models import model as M
+    T = LM_DECODE_T
+    _, cache = M.prefill(cfg, params, {k: v[:, :T] for k, v in head.items()},
+                         cache_len=T + 4)
+    dec, _ = M.decode_step(cfg, params, cache,
+                           {k: v[:, T:] for k, v in head.items()})
+    dec = dec[:, 0].float()
+    full = M.forward(cfg, params, head)[:, T].float()
+    return rel_diff(dec, full), dec, full
+
+
+def phase_lm_arms() -> dict:
+    """qwen3-moe, rwkv6, jamba (depth cut) and musicgen (embeds input) at
+    full width on the card, one model at a time (``LM_ARMS``): forward
+    flash vs xla with the flash counters zeroed just before and read
+    just after (one sm90 launch per attention layer), each attention
+    layer's flash output against xla's on the same input, each MoE,
+    Mamba and RWKV-6 sublayer in bf16 against f32 on the same input and
+    weights, prefill + decode_step against forward (in bf16 where
+    ``bf16_gates``, and in f32 at full width), BatchedServer rounds
+    where the reference serves the config, and where the device time
+    goes.  Every gate of every model is checked; the phase fails at its
+    end if any did not hold."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.models import model as M
+
+    dev = torch.device("cuda")
+    failures, res = [], {}
+
+    def gate(ok: bool, what: str) -> None:
+        if not ok:
+            failures.append(what)
+            say("arms", f"GATE FAILED: {what}")
+
+    def params_on_card(cfg):
+        t0 = time.perf_counter()
+        params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                               dev)
+        torch.cuda.synchronize()
+        n = sum(t.numel() for t in _leaves(params))
+        gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+        return params, n, gb, time.perf_counter() - t0
+
+    for arm in LM_ARMS:
+        name, B, cf = arm["arch"], arm["B"], arm["cf"]
+        t_model = time.perf_counter()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = dataclasses.replace(get_arch(name), **arm["cut"])
+        cfg_flash = dataclasses.replace(cfg, attention_impl="flash")
+        n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+        kinds = {k: sum(cfg.layer_kind(i) == k for i in range(cfg.n_layers))
+                 for k in dict.fromkeys(cfg.block_pattern)}
+        n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers)
+                    if cfg.layer_kind(i) != "rwkv6")
+        params, n_params, gb, init_s = params_on_card(cfg)
+        cut = (f" (cut from {get_arch(name).n_layers} layers)"
+               if arm["cut"] else "")
+        say("arms", f"{name}: {cfg.n_layers} layers{cut} {kinds}, {n_moe} "
+                    f"MoE ({cfg.n_experts} experts, top {cfg.top_k}), "
+                    f"d_model {cfg.d_model}, heads {cfg.n_heads} (kv "
+                    f"{cfg.n_kv_heads}, hd {cfg.head_dim_}), d_ff "
+                    f"{cfg.d_ff}, vocab {cfg.vocab_size}, input "
+                    f"{'embeds' if cfg.frontend else 'tokens'}: {n_params} "
+                    f"parameters, {gb:.2f} GB on the card, drawn in "
+                    f"{init_s:.2f}s")
+        rng = np.random.default_rng(0)
+        if cfg.frontend is not None:
+            gen = torch.Generator(device=dev).manual_seed(1)
+            batch = {"embeds": torch.randn(
+                (B, LM_T, cfg.d_model), generator=gen, device=dev).to(
+                    getattr(torch, cfg.activation_dtype))}
+        else:
+            batch = {"tokens": torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (B, LM_T)).astype(np.int32)).to(dev)}
+        head = {k: v[:, :LM_DECODE_T + 1] for k, v in batch.items()}
+        n_tok = B * LM_T
+
+        def timed_forward(c):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = M.forward(c, params, batch)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        _, warm_s = timed_forward(cfg)          # cuBLAS and allocator warm-up
+        del _
+        torch.cuda.reset_peak_memory_stats()
+        flash_mod.launches = 0
+        for r in flash_mod.launches_by_route:
+            flash_mod.launches_by_route[r] = 0
+        lf, flash_s = timed_forward(cfg_flash)
+        launches = flash_mod.launches
+        by_route = dict(flash_mod.launches_by_route)
+        peak_flash = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        lx, xla_s = timed_forward(cfg)
+        peak_xla = torch.cuda.max_memory_allocated()
+        rel = rel_diff(lf, lx)
+        finite = bool(torch.isfinite(lf).all() and torch.isfinite(lx).all())
+        # Token rows whose own max|flash - xla| reaches the gate's share
+        # of max|xla|: a routing flip moves some rows, a wrong kernel all.
+        row_rel = ((lf.float() - lx.float()).abs().amax(dim=-1)
+                   / (lx.float().abs().max() + 1e-6))
+        rows_out = (row_rel >= LM_REL_GATE).float().mean().item()
+        shape = tuple(lf.shape)
+        del lf, lx, row_rel
+        say("arms", f"{name} forward B={B} T={LM_T}: flash {flash_s:.3f}s "
+                    f"({n_tok / flash_s:.1f} tokens/s, peak "
+                    f"{peak_flash / 1e9:.2f} GB), xla {xla_s:.3f}s "
+                    f"({n_tok / xla_s:.1f} tokens/s, peak "
+                    f"{peak_xla / 1e9:.2f} GB), first (xla, warm-up) "
+                    f"{warm_s:.3f}s; flash launches {launches} by route "
+                    f"{by_route}; max|flash - xla| / max|xla| {rel:.3g} "
+                    f"({'gate ' + str(LM_REL_GATE) if arm['bf16_gates'] else 'not gated: bf16 routing/drift'}; "
+                    f"token rows at or past {LM_REL_GATE}: {rows_out:.5f}); "
+                    f"finite {finite}")
+        gate(launches == n_attn and by_route == {"sm90": n_attn,
+                                                 "cuda_core": 0},
+             f"{name}: flash forward launched the kernel {launches} times "
+             f"({by_route}), expected {n_attn}, all on the sm90 route")
+        gate(finite and shape == (B, LM_T, cfg.vocab_size),
+             f"{name}: forward logits shape {shape}, finite {finite}")
+        if arm["bf16_gates"]:
+            gate(rel < LM_REL_GATE, f"{name}: flash and xla logits differ: "
+                                    f"rel {rel}")
+        layer_rel = None
+        if n_attn:
+            layer_rel, n_held = layerwise_flash_vs_xla(cfg, params, batch)
+            say("arms", f"{name} attention layers fed the xla forward's "
+                        f"input, flash vs xla: worst rel {layer_rel:.3g} "
+                        f"over {n_held} layers (gate {LM_REL_GATE})")
+            gate(n_held == n_attn and layer_rel < LM_REL_GATE,
+                 f"{name}: an attention layer's flash and xla outputs "
+                 f"differ: rel {layer_rel} over {n_held} layers")
+        sub_rel = {}
+        if n_moe or set(kinds) - {"attn"}:
+            t0 = time.perf_counter()
+            sub_rel = layerwise_bf16_vs_f32(cfg, params, batch)
+            want = {"moe": n_moe, "mamba": kinds.get("mamba", 0),
+                    "rwkv6 time mix": kinds.get("rwkv6", 0),
+                    "rwkv6 channel mix": kinds.get("rwkv6", 0)}
+            want = {k: n for k, n in want.items() if n}
+            say("arms", f"{name} sublayers fed the bf16 forward's input, "
+                        f"bf16 vs f32 on the same weights, worst rel over "
+                        f"the layers: " + ", ".join(
+                            f"{k} {w:.3g} ({n} layers, gate "
+                            f"{SUBLAYER_BF16_GATE[k]})"
+                            for k, (w, n) in sub_rel.items())
+                        + f"; {time.perf_counter() - t0:.1f}s")
+            gate({k: n for k, (_, n) in sub_rel.items()} == want
+                 and all(w < SUBLAYER_BF16_GATE[k]
+                         for k, (w, _) in sub_rel.items()),
+                 f"{name}: a bf16 sublayer differs from f32: {sub_rel}, "
+                 f"expected layers {want}")
+
+        # Where a flash forward's device time goes: by kernel, by kind
+        # of kernel, and (MoE; its ranges need the CPU side traced) by
+        # stage of the layer.
+        acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if n_moe
+                                          else [])
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            M.forward(cfg_flash, params, batch)
+            torch.cuda.synchronize()
+            prof_s = time.perf_counter() - t0
+        busy = _device_busy(prof)
+        busy_ms = sum(busy.values())
+        split = _kernel_split(busy)
+        stages = _stage_device_ms(prof) if n_moe else {}
+        top = sorted(busy.items(), key=lambda kv: -kv[1])[:8]
+        del prof
+        say("arms", f"{name} profiled flash forward {prof_s * 1e3:.1f} ms "
+                    f"wall ({'CPU and ' if n_moe else ''}CUDA traced), "
+                    f"device busy {busy_ms:.1f} ms; by kind: " + ", ".join(
+                        f"{k} {v:.1f} ms ({v / busy_ms:.4f})"
+                        for k, v in split.items()))
+        if stages:
+            say("arms", f"{name} MoE stages ({n_moe} layers), device ms of "
+                        f"the kernels each launched: " + ", ".join(
+                            f"{k} {v:.1f}" for k, v in stages.items()))
+        say("arms", f"{name} top kernels: " + "; ".join(
+            f"{k[:64]} {v:.1f} ms" for k, v in top))
+
+        c_dec = (dataclasses.replace(cfg, capacity_factor=cf) if cf
+                 else cfg)
+        rel_dec, dec16, full16 = decode_vs_forward(c_dec, params, head)
+        say("arms", f"{name} prefill({LM_DECODE_T}) + decode_step vs "
+                    f"forward({LM_DECODE_T + 1}), bf16, capacity_factor "
+                    f"{c_dec.capacity_factor}: rel {rel_dec:.3g} "
+                    f"({'gate ' + str(LM_DECODE_GATE) if arm['bf16_gates'] else 'not gated: bf16 routing/drift'})")
+        if arm["bf16_gates"]:
+            gate(rel_dec < LM_DECODE_GATE,
+                 f"{name}: decode disagrees with forward: rel {rel_dec}")
+        row = {"params": n_params, "gb": gb, "n_layers": cfg.n_layers,
+               "launches": launches, "launches_by_route": by_route,
+               "flash_xla_rel": rel, "flash_xla_rows_out": rows_out,
+               "flash_xla_layer_rel": layer_rel, "decode_rel_bf16": rel_dec,
+               "sublayer_bf16_f32_rel": {k: w for k, (w, _) in
+                                         sub_rel.items()},
+               "forward_tokens_per_s": n_tok / flash_s,
+               "forward_xla_tokens_per_s": n_tok / xla_s,
+               "peak_gb": peak_flash / 1e9, "forward_busy_ms": busy_ms,
+               "forward_split_ms": split, "moe_stages_ms": stages}
+        if arm["serve"]:
+            row.update(serve_and_profile("arms", cfg, params, rng,
+                                         ARMS_SERVE_REQUESTS,
+                                         ARMS_SERVE_ROUNDS))
+        else:
+            # No server (the reference refuses frontends): decode steps
+            # on a prefilled cache, timed one by one.
+            _, cache = M.prefill(cfg, params, {k: v[:, :LM_DECODE_T]
+                                               for k, v in head.items()},
+                                 cache_len=LM_DECODE_T + 4)
+            last = {k: v[:, LM_DECODE_T:] for k, v in head.items()}
+            step_s = []
+            for _ in range(ARMS_DECODE_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, cache = M.decode_step(cfg, params, cache, last)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+            row["step_ms"] = statistics.median(step_s) * 1e3
+            say("arms", f"{name} decode step on {B} rows: median "
+                        f"{row['step_ms']:.1f} ms over "
+                        f"{ARMS_DECODE_STEPS} (first {step_s[0] * 1e3:.1f}"
+                        f" ms)")
+            del cache
+        # prefill + decode against forward in f32 at full width, where
+        # rounding cannot flip a route: on the bf16 weights widened where
+        # the whole depth fits in f32, else on an f32 draw of
+        # ``f32_layers`` layers.
+        f32 = dict(param_dtype="float32", activation_dtype="float32")
+        if arm["f32_layers"]:
+            f32["n_layers"] = arm["f32_layers"]
+        c32 = dataclasses.replace(c_dec, **f32)
+        widened = not arm["f32_layers"]
+        if widened:
+            params = _widened(params)
+            gb32 = sum(t.numel() * 4 for t in _leaves(params)) / 1e9
+        del batch
+        if not widened:
+            del params
+            torch.cuda.empty_cache()
+            params, _, gb32, _ = params_on_card(c32)
+        rel32, dec32, full32 = decode_vs_forward(c32, params, {
+            k: v.float() if v.is_floating_point() else v
+            for k, v in head.items()})
+        say("arms", f"{name} in f32 ({c32.n_layers} layers, {gb32:.2f} GB"
+                    f"{', the bf16 weights widened' if widened else ''}): "
+                    f"prefill({LM_DECODE_T}) + decode_step vs forward("
+                    f"{LM_DECODE_T + 1}), capacity_factor "
+                    f"{c32.capacity_factor}: rel {rel32:.3g} (gate "
+                    f"{LM_DECODE_GATE})")
+        gate(rel32 < LM_DECODE_GATE,
+             f"{name}: f32 decode disagrees with forward: rel {rel32}")
+        row.update(decode_rel_f32=rel32, f32_layers=c32.n_layers)
+        if widened:
+            row.update(decode_bf16_vs_f32=rel_diff(dec16, dec32),
+                       forward_bf16_vs_f32=rel_diff(full16, full32))
+            say("arms", f"{name} each bf16 path against its f32 twin on the "
+                        f"same weights, logits at position {LM_DECODE_T}: "
+                        f"prefill + decode rel "
+                        f"{row['decode_bf16_vs_f32']:.3g}, forward rel "
+                        f"{row['forward_bf16_vs_f32']:.3g} (bf16 decode vs "
+                        f"bf16 forward {rel_dec:.3g})")
+            if not arm["bf16_gates"]:
+                # Without the whole-model bf16 gate: the two bf16 paths
+                # stay closer to each other than the bf16 forward is to
+                # its f32 twin, the rounding of bf16 itself.
+                gate(rel_dec <= row["forward_bf16_vs_f32"],
+                     f"{name}: bf16 decode drifts from bf16 forward "
+                     f"({rel_dec}) past the bf16 forward's distance from "
+                     f"f32 ({row['forward_bf16_vs_f32']})")
+        del params, head, dec16, full16, dec32, full32
+        torch.cuda.empty_cache()
+        res[name] = row
+        say("arms", f"{name} done in {time.perf_counter() - t_model:.1f}s")
+    if failures:
+        raise AssertionError("phase 7b: " + "; ".join(failures))
+    return res
 
 
 def _leaves(tree):
@@ -2404,13 +2885,55 @@ def _leaves(tree):
             yield v
 
 
+def _widened(tree):
+    """A parameter tree with every leaf cast to f32 (new tensors)."""
+    return {k: _widened(v) if isinstance(v, dict) else v.float()
+            for k, v in tree.items()}
+
+
 def _device_busy(prof) -> dict:
-    """Device time (ms) by kernel name from a torch.profiler run."""
+    """Device time (ms) by kernel name from a torch.profiler run.  The
+    MoE stages' ``record_function`` ranges, which the profiler may also
+    show on the device's timeline, are not kernels and are left out."""
     import torch
     cuda = torch.autograd.DeviceType.CUDA
     return {e.key: getattr(e, "self_device_time_total", 0.0) / 1e3
             for e in prof.key_averages()
-            if getattr(e, "device_type", None) == cuda}
+            if getattr(e, "device_type", None) == cuda
+            and e.key not in MOE_STAGES}
+
+
+def _stage_device_ms(prof) -> dict:
+    """Device time (ms) of the kernels launched inside each MoE stage's
+    ``record_function`` range (CPU-side totals, which include every
+    kernel its ops launched)."""
+    import torch
+    cpu = torch.autograd.DeviceType.CPU
+    out = dict.fromkeys(MOE_STAGES, 0.0)
+    for e in prof.key_averages():
+        if e.key in out and getattr(e, "device_type", None) == cpu:
+            out[e.key] += getattr(e, "device_time_total", 0.0) / 1e3
+    return out
+
+
+def _kernel_split(busy: dict) -> dict:
+    """A profile's device ms by kind of kernel: GEMMs (cuBLAS/CUTLASS
+    products, f32 and bf16 apart), the flash kernel, copies (casts of
+    weights and activations to f32 among them), and the rest."""
+    split = dict.fromkeys(("gemm_f32", "gemm_bf16", "flash", "copy",
+                           "other"), 0.0)
+    for k, v in busy.items():
+        low = k.lower()
+        if "flash_attention" in low:
+            split["flash"] += v
+        elif any(w in low for w in ("gemm", "xmma", "cutlass", "nvjet")):
+            split["gemm_bf16" if any(w in low for w in (
+                "bf16", "bfloat16", "_hsh", "_bsb")) else "gemm_f32"] += v
+        elif "copy" in low:
+            split["copy"] += v
+        else:
+            split["other"] += v
+    return split
 
 
 def main() -> int:
@@ -2446,6 +2969,7 @@ def main() -> int:
     phase_trace(dag_trace)
     flash = phase_flash()
     lm = phase_lm()
+    arms = phase_lm_arms()
     bench = phase_bench()
     serving = phase_serving(card, globe)
     top_shapes = phase_workflow_shapes({"zip workflow": zip_shapes,
@@ -2538,6 +3062,8 @@ def main() -> int:
         "per_shape": flash["per_shape"],
         "lm_forward_tokens_per_s": lm["forward_tokens_per_s"],
         "lm_forward_flash_share": lm["forward_flash_share"],
+        "launches_lm_arms": {n: r["launches"] for n, r in arms.items()},
+        "lm_arms": arms,
     })
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))

@@ -3,10 +3,14 @@
 Port of ``repro/launch/serve.py``, with ``--device``:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch qwen3-moe-30b-a3b --requests 8 --device cpu
 
-``--reduced`` is on whatever the command line says, as in the JAX
-package (``store_true`` with ``default=True``); the full-width model is
-driven through the Python API (``chip_smoke.py`` phase 7).
+Every token-input config serves (dense, MoE, Mamba and RWKV-6 blocks);
+the stubbed-frontend configs exit, as in the JAX package.  ``--reduced``
+is on whatever the command line says, as there (``store_true`` with
+``default=True``); the full-width models are driven through the Python
+API (``chip_smoke.py`` phases 7 and 7b).
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
-"""Core layers: RMSNorm, RoPE, GQA attention (train + cached decode), MLPs.
+"""Core layers: RMSNorm, RoPE, GQA attention (train + cached decode),
+MLPs, and capacity-based MoE.
 
-Port of ``repro/models/layers.py`` (``moe`` and the sharding constraints
-wait for the MoE slice).  Every dtype step is the JAX package's: where
+Port of ``repro/models/layers.py``.  Every dtype step is the JAX package's: where
 JAX asks an einsum for ``preferred_element_type=F32`` the port upcasts
 both operands and multiplies in f32 (exact for bf16 operands: their
 products fit f32, and the sums are f32 as on the TPU), and where it asks
@@ -15,6 +15,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from repro_torch.kernels import ops as kops
 
@@ -173,7 +174,7 @@ def attention_decode(x: torch.Tensor, cache: dict, p: dict, *, n_heads: int,
 
 
 # ---------------------------------------------------------------------------
-# MLP (gated)
+# MLP (gated) + MoE
 # ---------------------------------------------------------------------------
 
 def mlp(x: torch.Tensor, p: dict, activation: str) -> torch.Tensor:
@@ -186,3 +187,106 @@ def mlp(x: torch.Tensor, p: dict, activation: str) -> torch.Tensor:
     else:
         h = act(h[:, :, 0])
     return einsum("btf,fd->btd", h.to(x.dtype), p["wo"], x.dtype)
+
+
+def _largest_divisor_leq(n: int, cap: int) -> int:
+    d = min(cap, n)
+    while n % d:
+        d -= 1
+    return d
+
+
+def _rank_in_expert(eid: torch.Tensor) -> torch.Tensor:
+    """Position of each entry of ``eid`` (G, SK) within its expert's
+    queue, first come first ranked: a stable sort of the expert ids, the
+    left ``searchsorted`` of each sorted id, scattered back to its
+    place."""
+    SK = eid.shape[1]
+    order = torch.argsort(eid, dim=-1, stable=True)
+    e_sorted = torch.gather(eid, 1, order)
+    start = torch.searchsorted(e_sorted, e_sorted, right=False)
+    pos_sorted = (torch.arange(SK, device=eid.device) - start).to(torch.int32)
+    return torch.zeros_like(pos_sorted).scatter_(1, order, pos_sorted)
+
+
+def _route(xg: torch.Tensor, router: torch.Tensor, top_k: int,
+           cap: int) -> tuple:
+    """(gate_vals, gate_idx, pos, keep) of the groups ``xg`` (G, Sg, D):
+    the f32 router's softmax, its top-k (values and expert ids, (G, Sg,
+    K)), each choice's rank in its expert's queue and whether that rank
+    is under ``cap``; gate values of dropped choices are zeroed."""
+    G, gs, _ = xg.shape
+    gate_logits = einsum("gsd,de->gse", xg.to(F32), router, F32)
+    probs = torch.softmax(gate_logits, dim=-1)                 # (G, Sg, E)
+    gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True,
+                                     stable=True)
+    gate_vals = gate_vals[..., :top_k]
+    gate_idx = gate_idx[..., :top_k]
+    pos = _rank_in_expert(gate_idx.reshape(G, gs * top_k))
+    pos = pos.reshape(G, gs, top_k)
+    keep = pos < cap
+    return gate_vals * keep, gate_idx, pos, keep
+
+
+def moe(x: torch.Tensor, p: dict, *, n_experts: int, top_k: int,
+        activation: str, capacity_factor: float = 1.25,
+        group_size: int = 2048) -> torch.Tensor:
+    """Capacity-based top-k MoE with grouped dispatch.
+
+    p: {'router': (D, E), 'wi': (E, D, 2|1, F), 'wo': (E, F, D)}.
+    Tokens over capacity are dropped (the residual passes through).
+    Tokens are routed within groups of ``group_size`` (GShard-style):
+    the dispatch one-hot products grow with the square of the group.
+
+    As in the JAX package: the router, its softmax and the top-k in f32;
+    the capacity ``max(int(capacity_factor * top_k * gs / E), 1)`` in
+    Python floats; the rank of each (token, k) in its expert's queue by
+    a stable sort; one-hots in ``x.dtype``.  The top-k is a stable
+    descending sort, so equal probabilities go to the lower expert index
+    first, as ``jax.lax.top_k`` sends them (``torch.topk`` promises no
+    order among ties).  The reference's three-operand combine einsum
+    runs here as each chosen expert's gate (a contraction over k) times
+    the dispatch mask, both in ``x.dtype``; its 0/1 factors keep the
+    result exact.  The reference's ``_constrain`` sharding hints
+    have no counterpart: without a device mesh they do nothing.
+
+    The stages run under ``torch.profiler.record_function`` labels
+    (``moe.route``, ``moe.dispatch``, ``moe.experts``, ``moe.combine``)
+    so that a profile splits the layer's device time by stage.
+    """
+    B, T, D = x.shape
+    E = n_experts
+    S = B * T
+    gs = _largest_divisor_leq(S, group_size)
+    G = S // gs
+    xg = x.reshape(G, gs, D)
+    cap = max(int(capacity_factor * top_k * gs / E), 1)
+    with record_function("moe.route"):
+        gate_vals, gate_idx, pos, keep = _route(xg, p["router"], top_k, cap)
+    with record_function("moe.dispatch"):
+        onehot = F.one_hot(gate_idx, E).to(x.dtype)           # (G,Sg,K,E)
+        pos_oh = F.one_hot(torch.where(keep, pos, cap).long(),
+                           cap + 1).to(x.dtype)[..., :cap]     # (G,Sg,K,c)
+        disp = einsum("gske,gskc->gsec", onehot, pos_oh, x.dtype)
+        gate_e = einsum("gsk,gske->gse", gate_vals.to(x.dtype), onehot,
+                        x.dtype)
+        comb = disp * gate_e[..., None]
+        xin = einsum("gsec,gsd->gecd", disp, xg, F32).to(x.dtype)
+    with record_function("moe.experts"):
+        # Expert FFN as 3-D batched products over (E, G*cap, ...).
+        z = p["wi"].shape[2]
+        Fd = p["wi"].shape[3]
+        xe = xin.transpose(0, 1).reshape(E, G * cap, D)
+        wi = p["wi"].reshape(E, D, z * Fd)
+        h = einsum("ecd,edf->ecf", xe, wi, F32).reshape(E, G * cap, z, Fd)
+        act = activation_fn(activation)
+        if z == 2:
+            h = act(h[:, :, 0]) * h[:, :, 1]
+        else:
+            h = act(h[:, :, 0])
+        eout = einsum("ecf,efd->ecd", h.to(x.dtype), p["wo"],
+                      F32).to(x.dtype)
+        eout = eout.reshape(E, G, cap, D).transpose(0, 1)      # (G,E,c,D)
+    with record_function("moe.combine"):
+        yf = einsum("gsec,gecd->gsd", comb, eout, F32).to(x.dtype)
+    return yf.reshape(B, T, D)

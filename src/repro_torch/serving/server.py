@@ -32,22 +32,32 @@ class Request:
     done: bool = False
 
 
+def _splice(big: dict, one: dict, slot: int) -> None:
+    """Write a one-request cache into ``slot`` of the batch cache, over
+    the nested dict at any depth.  Leaves are (n_superblocks, B, ...):
+    the batch is axis 1.  Each leaf is cast to the batch cache's dtype,
+    as the reference's ``one.astype(big.dtype)``."""
+    for key, leaf in one.items():
+        if isinstance(leaf, dict):
+            _splice(big[key], leaf, slot)
+        else:
+            big[key][:, slot:slot + 1] = leaf.to(big[key].dtype)
+
+
 class BatchedServer:
     """Serves on ``device`` (``None`` means the card; pass ``"cpu"`` for
     the CPU).  ``params`` are moved there if they live elsewhere.
 
     ``greedy`` and ``seed`` are the reference's keywords, stored as it
-    stores them.  Decoding is greedy, the reference's only behaviour:
-    no sampler exists, so ``greedy=False`` raises."""
+    stores them and never read: decoding is greedy whatever ``greedy``
+    says, as the reference's is.  Token-input configs only: a stubbed
+    frontend (``cfg.frontend``) is refused, as there."""
 
     def __init__(self, cfg: ArchConfig, params, *, slots: int = 4,
                  prompt_len: int = 64, cache_len: int = 256,
                  greedy: bool = True, seed: int = 0, device=None):
         if cfg.frontend is not None:
             raise ValueError("stub-frontend archs serve via embeds path")
-        if not greedy:
-            raise ValueError("BatchedServer decodes greedily only: no "
-                             "sampler exists (greedy=False)")
         self.cfg = cfg
         self.device = ops.resolve_device(device)
         self.params = M.tree_map(lambda x: x.to(self.device), params)
@@ -80,10 +90,7 @@ class BatchedServer:
             self.cfg, self.params,
             {"tokens": torch.from_numpy(prompt).to(self.device)},
             cache_len=self.cache_len)
-        # Leaves are (n_superblocks, B, ...): the batch is axis 1.
-        for name, leaves in cache1.items():
-            for key, one in leaves.items():
-                self.cache[name][key][:, slot:slot + 1] = one
+        _splice(self.cache, cache1, slot)
         nxt = int(torch.argmax(logits[0, -1]))
         req.tokens_out.append(nxt)
         self._last_token[slot, 0] = nxt

@@ -1007,6 +1007,46 @@ def test_reduced_server_tokens_card_match_cpu(dev):
     assert run("cuda") == run("cpu")
 
 
+@pytest.mark.parametrize("name", ["qwen3-moe-30b-a3b", "rwkv6-3b",
+                                  "jamba-v0.1-52b"])
+def test_reduced_arms_forward_card_matches_cpu(dev, name):
+    """MoE, RWKV-6 and Mamba blocks on the card (f32, flash attention
+    where the config has attention layers) against the CPU."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.models import model as M
+    cfg, params = _reduced_lm(name, attention_impl="flash")
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 200))
+    want = M.forward(cfg, params, {"tokens": toks})
+    on_card = M.tree_map(lambda t: t.to(dev), params)
+    before = flash_mod.launches
+    got = M.forward(cfg, on_card, {"tokens": toks})
+    torch.cuda.synchronize()
+    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+    assert flash_mod.launches - before == n_attn
+    rel = (got.cpu() - want).abs().max() / want.abs().max()
+    assert rel.item() < 1e-4
+
+
+@pytest.mark.parametrize("name", ["qwen3-moe-30b-a3b", "rwkv6-3b",
+                                  "jamba-v0.1-52b"])
+def test_reduced_arms_server_tokens_card_match_cpu(dev, name):
+    from repro_torch.serving import BatchedServer, Request
+    cfg, params = _reduced_lm(name)
+
+    def run(device):
+        rng = np.random.default_rng(5)
+        reqs = [Request(i, rng.integers(0, cfg.vocab_size,
+                                        int(rng.integers(3, 14))),
+                        max_new_tokens=int(rng.integers(2, 9)))
+                for i in range(7)]
+        server = BatchedServer(cfg, params, slots=4, prompt_len=16,
+                               cache_len=48, device=device)
+        server.serve(reqs)
+        return [r.tokens_out for r in reqs], server.steps
+
+    assert run("cuda") == run("cpu")
+
+
 # ---------------------------------------------------------------------------
 # The bench matrices on the card (repro_torch.bench).
 # ---------------------------------------------------------------------------

@@ -2,10 +2,12 @@
 
 Both servers get the JAX package's f32 parameters (through
 ``params_from_numpy``) and the same requests; greedy decoding must give
-identical token lists and engine steps.  The slot-semantics tests mirror
-tests/test_data_serving.py on the port.  A fresh interpreter that drives
-the port's LM path (forward, serve, ``launch.serve --device cpu``) must
-leave JAX and every ``repro`` module unimported.
+identical token lists and engine steps, for dense, MoE (capacity 1 at
+four slots), Mamba and RWKV-6 configs (whose caches nest two levels
+deep).  The slot-semantics tests mirror tests/test_data_serving.py on
+the port.  A fresh interpreter that drives the port's LM path (forward,
+prefill, decode, serve, ``launch.serve --device cpu``) must leave JAX
+and every ``repro`` module unimported.
 """
 
 import dataclasses
@@ -54,7 +56,10 @@ def _requests(cls, vocab, n, seed, prompt_hi, new_lo, new_hi):
 
 
 @pytest.mark.parametrize("name,slots,n_req", [
-    ("stablelm-12b", 3, 7), ("minicpm-2b", 2, 5), ("granite-34b", 4, 6)])
+    ("stablelm-12b", 3, 7), ("minicpm-2b", 2, 5), ("granite-34b", 4, 6),
+    ("nemotron-4-340b", 2, 5), ("qwen3-moe-30b-a3b", 4, 7),
+    ("llama4-maverick-400b-a17b", 4, 6), ("rwkv6-3b", 4, 6),
+    ("jamba-v0.1-52b", 4, 6)])
 def test_server_matches_reference_tokens_and_steps(name, slots, n_req):
     jcfg, jp, cfg, tp = _env(name, **F32_CFG)
     kw = dict(slots=slots, prompt_len=16, cache_len=48)
@@ -229,7 +234,84 @@ def test_server_takes_reference_keywords(server_env):
     assert runs[0] == runs[1] == runs[2]
 
 
-def test_server_rejects_sampling(server_env):
+def test_server_greedy_false_decodes_reference_tokens(server_env):
+    """The reference stores greedy and never reads it, so greedy=False
+    decodes greedily there: the port gives the same tokens and steps."""
     cfg, params = server_env
-    with pytest.raises(ValueError, match="greedy"):
-        BatchedServer(cfg, params, greedy=False, device="cpu")
+    jcfg, jp, _, _ = _env("minicpm-2b")
+    kw = dict(slots=2, prompt_len=16, cache_len=48, greedy=False, seed=3)
+    server = BatchedServer(cfg, params, device="cpu", **kw)
+    jserver = JaxServer(jcfg, jp, **kw)
+    assert server.greedy is False and server.seed == 3
+    reqs = _requests(Request, cfg.vocab_size, 4, 13, 14, 2, 7)
+    jreqs = _requests(JaxRequest, cfg.vocab_size, 4, 13, 14, 2, 7)
+    server.serve(reqs)
+    jserver.serve(jreqs)
+    assert [r.tokens_out for r in reqs] == [r.tokens_out for r in jreqs]
+    assert server.steps == jserver.steps
+
+
+def test_splice_writes_every_nested_leaf():
+    """An RWKV-6 cache is three levels deep (sublayer, time/channel,
+    shift/wkv): admit writes the prefilled request's leaves into its
+    slot at every depth, cast to the batch cache's dtypes, and touches
+    no other slot."""
+    _, _, cfg, params = _env("rwkv6-3b")
+    server = BatchedServer(cfg, params, slots=3, prompt_len=8,
+                           cache_len=16, device="cpu")
+    server.cache = M.tree_map(lambda t: torch.full_like(t, 5), server.cache)
+    server.cache["s0"]["time"]["wkv"] = server.cache["s0"]["time"][
+        "wkv"].double()
+    assert server.admit(Request(0, np.arange(1, 6), max_new_tokens=2))
+    _, one = M.prefill(cfg, server.params, {"tokens": torch.tensor(
+        [[0, 0, 0, 1, 2, 3, 4, 5]], dtype=torch.int32)}, cache_len=16)
+    assert server.cache["s0"]["time"]["wkv"].dtype == torch.float64
+    for part, leaves in one["s0"].items():
+        for key, leaf in leaves.items():
+            big = server.cache["s0"][part][key]
+            assert torch.equal(big[:, 0:1], leaf.to(big.dtype)), (part, key)
+            assert (big[:, 1:] == 5).all(), (part, key)
+
+
+_ARMS_SCRIPT = r"""
+import json, sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from repro_torch.configs import get_arch
+from repro_torch.models import model as M
+from repro_torch.serving import BatchedServer, Request
+out = {}
+for name in ("qwen3-moe-30b-a3b", "rwkv6-3b"):
+    cfg = get_arch(name, reduced=True)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = np.arange(12, dtype=np.int32).reshape(1, 12)
+    logits = M.forward(cfg, params, {"tokens": toks})
+    _, cache = M.prefill(cfg, params, {"tokens": toks[:, :11]},
+                         cache_len=16)
+    step, _ = M.decode_step(cfg, params, cache, {"tokens": toks[:, 11:]})
+    server = BatchedServer(cfg, params, slots=2, prompt_len=8,
+                           cache_len=32, device="cpu")
+    reqs = [Request(i, np.arange(1, 4 + i), max_new_tokens=3)
+            for i in range(3)]
+    server.serve(reqs)
+    out[name] = {"finite": bool(torch.isfinite(logits).all()
+                                and torch.isfinite(step).all()),
+                 "tokens": [len(r.tokens_out) for r in reqs]}
+out["foreign"] = sorted(m for m in sys.modules
+                        if m == "jax" or m.startswith(("jax.", "repro.")))
+out["foreign"] += ["repro"] if "repro" in sys.modules else []
+print(json.dumps(out))
+"""
+
+
+def test_port_moe_and_rwkv_paths_run_without_jax(tmp_path):
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
+    proc = subprocess.run([sys.executable, "-c", _ARMS_SCRIPT],
+                          capture_output=True, text=True, env=env,
+                          timeout=240, cwd=tmp_path)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    doc = json.loads(proc.stdout.strip().splitlines()[-1])
+    for name in ("qwen3-moe-30b-a3b", "rwkv6-3b"):
+        assert doc[name] == {"finite": True, "tokens": [3, 3, 3]}, name
+    assert doc["foreign"] == []
