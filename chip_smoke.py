@@ -180,6 +180,25 @@ Phases, each printed as it runs:
              share.  Every number is printed beside the card's name and
              power limit.  The last check (interp and rates at each
              workflow's top launch shape) includes this phase's.
+10. train  — training (``repro_torch.data``, ``repro_torch.train``,
+             ``repro_torch.launch.steps``): minicpm-2b at full width
+             (2.72 B bf16 parameters, AdamW with f32 moments, remat
+             "nothing", cosine lr with 2 warm-up steps) on 8 x 1024
+             Zipf-skewed tokens a step from a SelfScheduledLoader
+             (threads), 6 steps through ``Trainer``, the last under
+             torch.profiler, with every kernel counter zeroed just
+             before and read just after (none launches: training takes
+             the xla attention, as in the reference, whose Pallas kernel
+             has no gradient); fails on a non-finite loss or grad norm,
+             a last loss not below the first, or allocated memory that
+             grows from step to step; prints step ms, tokens/s, peak
+             memory and the profiled step's device time by kind of
+             kernel.  Then one step's peak memory without remat and
+             under each policy at 1 x 1024 tokens; three f32 steps of
+             reduced minicpm-2b on the card against the CPU from the
+             same weights (losses and ||dparams|| / ||params|| within
+             1e-4); and a bf16 run checkpointed at step 2 and resumed by
+             a fresh Trainer against the uninterrupted run (1e-3).
 
 The line before the last is the card's name and power limit; before it
 one JSON object lists every kernel with its timings.  The last line is
@@ -340,6 +359,58 @@ SUBLAYER_BF16_GATE = {"moe": LM_REL_GATE, "mamba": LM_REL_GATE,
 FLASH_ARMS_SHAPES = ((1, 32, 4, LM_T, LM_T, 128, True),
                      (1, 32, 8, LM_T, LM_T, 128, True),
                      (2, 24, 24, LM_T, LM_T, 64, True))
+# Phase 10: training.  (a) minicpm-2b at full width (bf16 weights, AdamW
+# with f32 moments, remat "nothing", cosine lr with 2 warm-up steps),
+# TRAIN_B x TRAIN_T tokens a step from a SelfScheduledLoader over
+# Zipf-skewed shards, TRAIN_STEPS steps, the last one profiled.  (b) one
+# step each without remat and under the three policies, at TRAIN_MEM_B
+# sequences (without remat the attention's f32 logits and
+# probabilities of all 40 layers stay alive: about 3.6 GB a layer at B
+# = 8, which does not fit beside the 32.6 GB of weights, gradients and
+# moments).  (c) the f32 variant of reduced minicpm-2b, TRAIN_CMP_STEPS
+# steps on the card and on the CPU from the same weights.  (d) reduced
+# minicpm-2b in bf16: TRAIN_RESUME_STEPS steps straight against a run
+# checkpointed at step 2 and resumed by a fresh Trainer.  (e) the
+# full-width witness (below).
+TRAIN_ARCH = "minicpm-2b"
+TRAIN_B, TRAIN_T, TRAIN_STEPS = 8, 1024, 6
+# The reference's default peak lr (3e-4) diverges at full width within 6
+# steps (losses 11.78, 11.88, 11.78, 23.09, 8.01, 13.65 on an H100 80GB
+# HBM3 at 700 W); at 3e-5 they fall.  (e) below is the witness that the
+# gradient at full width is right and that the cause is the step size:
+# Adam's first steps move every weight by about lr, coherently.
+TRAIN_PEAK_LR = 3e-5
+# (e) At full width, on the step-0 weights and (a)'s first batch: the
+# f32 twin's gradient (the bf16 weights widened) checked leaf by leaf by
+# central differences along itself, (L(w + e g) - L(w - e g)) / 2e
+# against ||g||^2, with e set so that e ||g||^2 = TRAIN_FD_DL; the bf16
+# gradient against the f32 twin's, leaf by leaf; and the loss after one
+# sign step w - eta sign(g) (Adam's first step is about lr per element)
+# at each TRAIN_WIT_ETAS, in f32 and in bf16, with the share of bf16
+# elements the step changes.
+TRAIN_FD_DL = 1e-2
+TRAIN_FD_RTOL = 2e-2
+TRAIN_BF16_GRAD_TOL = 0.05       # ||g_bf16 - g_f32|| / ||g_f32||, a leaf
+# The tied embedding's rows that the batch looks up gather every repeat
+# of their token in bf16, one rounding per repeat, in the reference as in
+# the port: at reduced width on the CPU those rows' bf16 gradient is
+# 0.128 (4 x 512 Zipf tokens) and 0.322 (8 x 1024) off the f32 twin's in
+# both packages (tests/test_torch_train.py::
+# test_bf16_embedding_gradient_rounds_as_reference); its other rows are
+# held at TRAIN_BF16_GRAD_TOL.
+TRAIN_BF16_EMBED_TOL = 0.5
+TRAIN_BF16_LOSS_RTOL = LM_REL_GATE   # the bf16 loss against its f32 twin
+TRAIN_WIT_ETAS = (1.5e-5, 3e-5, 1.5e-4, 3e-4)
+TRAIN_MEM_B = 1
+TRAIN_CMP_STEPS = 3
+TRAIN_CMP_LOSS_RTOL = 1e-4       # card vs CPU loss, f32
+TRAIN_CMP_PARAM_RTOL = 1e-4      # ||card - CPU|| / ||CPU|| over params
+TRAIN_RESUME_STEPS = 6
+# Resumed vs uninterrupted losses, bf16.  torch.use_deterministic_algorithms
+# is not set: the runs use the same kernels on the same shapes, and any
+# reordered sum moves a bf16 loss by far less than one bf16 rounding
+# (2^-8); 1e-3 relative sits under it.
+TRAIN_RESUME_RTOL = 1e-3
 # Screen tasks timed one after another, profiled, after the workflow.
 SCREEN_PROFILE_TASKS = 200
 # Card against CPU on the GLOBE batch: both run the same f32 operations
@@ -2877,6 +2948,411 @@ def phase_lm_arms() -> dict:
     return res
 
 
+def zipf_store(root: str, vocab: int, n_shards: int,
+               tokens_per_shard_mean: int, seed: int = 0) -> list:
+    """A token store of Zipf(1.5)-skewed ids below ``vocab`` (a learnable
+    unigram signal; uniform ids leave nothing above ln V), written by
+    the port's ``synthetic_token_shards`` (checksummed codec shards of
+    heavy-tailed sizes, ``store_manifest.json``) and reopened from its
+    manifest, as a launcher reopens a store."""
+    import numpy as np
+    from repro_torch.data.pipeline import (synthetic_token_shards,
+                                           token_shard_manifests)
+
+    def zipf(rng, n):
+        return np.minimum(rng.zipf(1.5, size=n), vocab - 1)
+    synthetic_token_shards(root, n_shards=n_shards, vocab_size=vocab,
+                           tokens_per_shard_mean=tokens_per_shard_mean,
+                           seed=seed, token_sampler=zipf)
+    return token_shard_manifests(root)
+
+
+def phase_train(device: str = "cuda") -> dict:
+    """Training on the card (TRAIN_* above): (a) full-width minicpm-2b
+    through SelfScheduledLoader and Trainer, with every kernel counter
+    zeroed just before and read just after (training launches none of
+    the five: the configs train through the 'xla' attention, as the
+    reference must); (b) peak memory of one step without remat and under
+    each policy; (c) the f32 variant of reduced minicpm-2b on the card
+    against the CPU; (d) a checkpointed run resumed by a fresh Trainer
+    against the uninterrupted run; (e) ``train_witness`` at full width.
+    ``device`` is the card but for a dry run of the phase's code on the
+    CPU."""
+    import dataclasses
+    import gc
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import SelfScheduledLoader
+    from repro_torch.kernels import (agl_lookup, dynamic_rates,
+                                     encounter_screen, track_interp)
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    root = os.path.join(WORK, "train")
+    shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mods = {"track_interp": track_interp, "agl_lookup": agl_lookup,
+            "dynamic_rates": dynamic_rates,
+            "encounter_screen": encounter_screen}
+    out: dict = {}
+
+    # (a) full width
+    cfg = get_arch(TRAIN_ARCH)
+    # twice the tokens the steps take, over 8 shards of heavy-tailed size
+    shards = zipf_store(os.path.join(root, "shards"), cfg.vocab_size,
+                        n_shards=8, tokens_per_shard_mean=TRAIN_STEPS
+                        * TRAIN_B * (TRAIN_T + 1) // 4)
+    t0 = time.perf_counter()
+    loader = SelfScheduledLoader(shards, batch_size=TRAIN_B,
+                                 seq_len=TRAIN_T, n_ingest_workers=4)
+    batches = list(loader.batches(TRAIN_STEPS))
+    say("train", f"loader: {len(shards)} Zipf store shards "
+                 f"({sorted((s.n_tokens for s in shards), reverse=True)} "
+                 f"tokens) ingested "
+                 f"largest-first by {loader.n_ingest_workers} threads in "
+                 f"{time.perf_counter() - t0:.3f}s, "
+                 f"{loader.job_result.messages_sent} messages, "
+                 f"{len(batches)} batches of {TRAIN_B} x {TRAIN_T}")
+    zero_counters(mods)
+    flash_mod.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, O.OptimizerConfig(),
+                 TrainerConfig(workdir=os.path.join(root, "full"),
+                               total_steps=TRAIN_STEPS, ckpt_every=0,
+                               warmup_steps=2, log_every=1,
+                               peak_lr=TRAIN_PEAK_LR), device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(tr.params))
+    state_gb = sum(t.numel() * t.element_size()
+                   for t in O.tree_leaves({"p": tr.params,
+                                           "o": tr.opt_state})) / 1e9
+    say("train", f"{cfg.name} at full width: {cfg.n_layers} layers, "
+                 f"d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocab "
+                 f"{cfg.vocab_size}: {n_params} parameters "
+                 f"({cfg.param_dtype}), params + AdamW f32 moments "
+                 f"{state_gb:.2f} GB (+ bf16 grads {n_params * 2 / 1e9:.2f} "
+                 f"GB in a step), built in {time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    resident = []
+    for b in batches[:-1]:
+        tr.run(iter([b]), 1)
+        resident.append(torch.cuda.memory_allocated())
+    peak_unprofiled = torch.cuda.max_memory_allocated() / 1e9
+    say("train", f"allocated after each step (GB): "
+                 f"{[round(x / 1e9, 3) for x in resident]}")
+    if len(set(resident)) != 1:
+        raise AssertionError("a training step left tensors behind")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tr.run(iter(batches[-1:]), 1)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log = tr.metrics_log
+    launches = {name: mod.launches for name, mod in mods.items()}
+    launches["flash_attention"] = flash_mod.launches
+    say("train", f"kernel launches in the {TRAIN_STEPS} steps (counters "
+                 f"zeroed just before): {launches}")
+    if any(launches.values()):
+        raise AssertionError(f"training launched kernels: {launches}")
+    for r in log:
+        if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])):
+            raise AssertionError(f"non-finite training step: {r}")
+    if not log[-1]["loss"] < log[0]["loss"]:
+        raise AssertionError(f"loss did not fall: {[r['loss'] for r in log]}")
+    step_s = statistics.median(r["sec"] for r in log[1:-1])
+    busy = _device_busy(prof)
+    split = _kernel_split(busy)
+    total = sum(busy.values())
+    out["full"] = {
+        "arch": cfg.name, "params": n_params, "B": TRAIN_B, "T": TRAIN_T,
+        "losses": [r["loss"] for r in log],
+        "grad_norms": [r["grad_norm"] for r in log],
+        "lr": [r["lr"] for r in log], "step_s": [r["sec"] for r in log],
+        "step_ms_median": step_s * 1e3,
+        "tokens_per_s": TRAIN_B * TRAIN_T / step_s,
+        "peak_gb": peak_unprofiled, "state_gb": state_gb,
+        "profiled_step_device_ms": total,
+        "split_ms": split, "f32_gemm_share": split["gemm_f32"] / total}
+    say("train", f"losses {[round(x, 4) for x in out['full']['losses']]}, "
+                 f"grad norms {[round(x, 3) for x in out['full']['grad_norms']]}")
+    say("train", f"step ms (steps 1..{TRAIN_STEPS - 2}, median) "
+                 f"{step_s * 1e3:.1f} of {[round(r['sec'] * 1e3, 1) for r in log]}"
+                 f"; {out['full']['tokens_per_s']:.1f} tokens/s; peak "
+                 f"memory {peak_unprofiled:.2f} GB "
+                 f"(max_memory_allocated); {TRAIN_STEPS} steps in "
+                 f"{wall:.2f}s")
+    say("train", f"profiled step: device busy {total:.1f} ms: f32 GEMMs "
+                 f"{split['gemm_f32']:.1f} ({split['gemm_f32'] / total:.4f})"
+                 f", bf16 GEMMs {split['gemm_bf16']:.1f}, copies (casts) "
+                 f"{split['copy']:.1f} ({split['copy'] / total:.4f}), "
+                 f"other {split['other']:.1f}, flash {split['flash']:.1f}")
+    top = sorted(busy.items(), key=lambda kv: -kv[1])[:12]
+    say("train", "top kernels (ms): " + "; ".join(
+        f"{k[:100]} {v:.1f}" for k, v in top))
+
+    # (b) peak memory by remat setting, one step each
+    one = {k: torch.from_numpy(v[:TRAIN_MEM_B]).to(dev)
+           for k, v in batches[0].items()}
+    out["memory"] = {}
+    for label, kw in (("remat=False", dict(remat=False)),
+                      ("nothing", dict(remat_policy="nothing")),
+                      ("dots_no_batch", dict(remat_policy="dots_no_batch")),
+                      ("everything", dict(remat_policy="everything"))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() / 1e9
+        t0 = time.perf_counter()
+        loss, grads = ST.value_and_grad(cfg, tr.params, one, **kw)
+        torch.cuda.synchronize()
+        peak_fb = torch.cuda.max_memory_allocated() / 1e9
+        O.apply_updates(tr.params, grads, tr.opt_state, tr.opt_cfg)
+        torch.cuda.synchronize()
+        del grads
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        out["memory"][label] = {"peak_gb": peak, "fwd_bwd_peak_gb": peak_fb,
+                                "resident_gb": base,
+                                "step_s": time.perf_counter() - t0,
+                                "loss": loss.item()}
+        say("train", f"memory, {TRAIN_MEM_B} x {TRAIN_T} tokens, {label}: "
+                     f"forward + backward peak {peak_fb:.2f} GB "
+                     f"({peak_fb - base:.2f} GB over the {base:.2f} GB "
+                     f"resident), step peak {peak:.2f} GB, step "
+                     f"{out['memory'][label]['step_s']:.3f}s")
+    tr.close()
+    del tr, loss, one
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) card against CPU, f32, from the same weights
+    cfg32 = dataclasses.replace(get_arch(TRAIN_ARCH, reduced=True),
+                                param_dtype="float32",
+                                activation_dtype="float32")
+    host = M.init_params(cfg32, torch.Generator().manual_seed(0), "cpu")
+    tree = M.tree_map(lambda t: t.numpy(), host)
+    small_loader = SelfScheduledLoader(
+        zipf_store(os.path.join(root, "small"), cfg32.vocab_size,
+                   n_shards=8, tokens_per_shard_mean=2048, seed=1),
+        batch_size=4, seq_len=64, n_ingest_workers=4)
+    small = list(small_loader.batches(TRAIN_CMP_STEPS + TRAIN_RESUME_STEPS))
+    small, rb = small[:TRAIN_CMP_STEPS], small[TRAIN_CMP_STEPS:]
+    opt = O.OptimizerConfig(lr=1e-3)
+    runs = {}
+    for where, on in (("card", dev), ("cpu", torch.device("cpu"))):
+        params = M.params_from_numpy(cfg32, tree, on)
+        state = O.init_opt_state(params, opt)
+        step = ST.make_train_step(cfg32, opt)
+        losses = []
+        for b in small:
+            _, _, met = step(params, state,
+                             {k: torch.from_numpy(v).to(on)
+                              for k, v in b.items()})
+            losses.append(met["loss"].item())
+        runs[where] = (losses, O.tree_leaves(params))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(runs["card"][0],
+                                                       runs["cpu"][0]))
+    num = sum(float(((a.detach().cpu().double() - b.detach().double()) ** 2)
+                    .sum()) for a, b in zip(runs["card"][1], runs["cpu"][1]))
+    den = sum(float((b.detach().double() ** 2).sum())
+              for b in runs["cpu"][1])
+    param_rel = (num / den) ** 0.5
+    out["card_vs_cpu"] = {"losses_card": runs["card"][0],
+                          "losses_cpu": runs["cpu"][0],
+                          "loss_rel": loss_rel, "param_rel": param_rel}
+    say("train", f"card vs CPU, {cfg32.name} f32, {TRAIN_CMP_STEPS} steps: "
+                 f"losses {runs['card'][0]} vs {runs['cpu'][0]}, max rel "
+                 f"{loss_rel:.3e} (gate {TRAIN_CMP_LOSS_RTOL}); "
+                 f"||dparams||/||params|| {param_rel:.3e} (gate "
+                 f"{TRAIN_CMP_PARAM_RTOL})")
+    if loss_rel > TRAIN_CMP_LOSS_RTOL or param_rel > TRAIN_CMP_PARAM_RTOL:
+        raise AssertionError("training on the card disagrees with the CPU")
+
+    # (d) checkpoint and resume, bf16
+    cfgr = get_arch(TRAIN_ARCH, reduced=True)
+    kw = dict(total_steps=TRAIN_RESUME_STEPS, ckpt_every=2, log_every=100,
+              peak_lr=1e-2, warmup_steps=1)
+    half = TRAIN_RESUME_STEPS // 2
+
+    def trainer(name):
+        return Trainer(cfgr, O.OptimizerConfig(),
+                       TrainerConfig(workdir=os.path.join(root, name), **kw),
+                       device=dev)
+    whole = trainer("whole")
+    want = [r["loss"] for r in whole.run(iter(rb), TRAIN_RESUME_STEPS)]
+    whole.close()
+    first = trainer("resumed")
+    first.run(iter(rb[:half]), half)
+    first.close()
+    second = trainer("resumed")
+    if second.step != half:
+        raise AssertionError(f"resumed at step {second.step}, not {half}")
+    got = [r["loss"] for r in second.run(iter(rb[half:]), half)]
+    second.close()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want[half:]))
+    out["resume"] = {"want": want[half:], "got": got, "rel": rel,
+                     "bitwise": got == want[half:]}
+    say("train", f"resume ({cfgr.name}, bf16, checkpoint at step 2, fresh "
+                 f"Trainer from step {half}): losses {got} vs the "
+                 f"uninterrupted {want[half:]}, max rel {rel:.3e} (gate "
+                 f"{TRAIN_RESUME_RTOL}), bitwise {out['resume']['bitwise']}; "
+                 f"torch.use_deterministic_algorithms not set")
+    if rel > TRAIN_RESUME_RTOL:
+        raise AssertionError("the resumed run left the uninterrupted one")
+
+    # (e) the full-width witness, from the Trainer's step-0 weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    w16 = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    out["witness"] = train_witness(
+        cfg, w16, {k: torch.from_numpy(v).to(dev)
+                   for k, v in batches[0].items()})
+    del w16
+    out["witness"]["s"] = time.perf_counter() - t0
+    out["witness"]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    say("train", f"witness in {out['witness']['s']:.1f}s, peak "
+                 f"{out['witness']['peak_gb']:.2f} GB")
+    out["phase_s"] = time.perf_counter() - t_phase
+    say("train", f"phase 10 in {out['phase_s']:.1f}s")
+    say("train", "summary " + json.dumps(out))
+    return out
+
+
+def train_witness(cfg, w16: dict, batch: dict) -> dict:
+    """Phase 10 (e) on ``cfg`` (bf16) at weights ``w16`` and ``batch``
+    (tensors on one device): the f32 twin's gradient against central
+    differences of its loss, leaf by leaf; the bf16 gradient against the
+    f32 twin's; and the loss after a sign step of each TRAIN_WIT_ETAS in
+    f32 and in bf16 (see the constants).  Raises if a gradient check
+    fails; ``w16`` is left as it was."""
+    import dataclasses
+    import torch
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as O
+
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                activation_dtype="float32")
+
+    def loss(c, w) -> float:
+        with torch.no_grad():
+            return M.loss_fn(c, w, batch).item()
+
+    l16, g16 = ST.value_and_grad(cfg, w16, batch, remat_policy="nothing")
+    w32 = _widened(w16)
+    l32, g32 = ST.value_and_grad(cfg32, w32, batch, remat_policy="nothing")
+    names = _leaf_paths(w16)
+    W16, W32, G16, G32 = (O.tree_leaves(t) for t in (w16, w32, g16, g32))
+    res: dict = {"loss_bf16": l16.item(), "loss_f32": l32.item(),
+                 "grad_bf16_vs_f32": {}, "fd": {}}
+    for n, a, b in zip(names, G16, G32):
+        if n != "embed":
+            res["grad_bf16_vs_f32"][n] = float((a.float() - b).norm()
+                                               / b.norm())
+            continue
+        # the rows the batch's tokens look up, apart (see the constants)
+        rows = torch.zeros(a.shape[0], dtype=torch.bool, device=a.device)
+        rows[batch["tokens"].flatten().long()] = True
+        for part, m in (("embed[batch rows]", rows),
+                        ("embed[other rows]", ~rows)):
+            res["grad_bf16_vs_f32"][part] = float(
+                (a[m].float() - b[m]).norm() / b[m].norm())
+        res["embed_batch_rows"] = int(rows.sum())
+    # central differences along each leaf's own gradient; w32 is
+    # restored exactly from w16 (it is w16 widened)
+    for n, w, src, g in zip(names, W32, W16, G32):
+        g2 = float(g.norm()) ** 2
+        e = TRAIN_FD_DL / g2
+        w.copy_(src).add_(g, alpha=e)
+        lp = loss(cfg32, w32)
+        w.copy_(src).add_(g, alpha=-e)
+        lm = loss(cfg32, w32)
+        w.copy_(src)
+        fd = (lp - lm) / (2 * e)
+        res["fd"][n] = {"fd": fd, "g2": g2, "rel": abs(fd - g2) / g2}
+    # sign steps: f32 from w32, bf16 from w16 (restored from w32)
+    n16 = sum(w.numel() for w in W16 if w.dtype != torch.float32)
+    res["sign_step"] = {"eta": list(TRAIN_WIT_ETAS), "f32": [],
+                        "f32_first_order": [], "bf16": [],
+                        "bf16_changed_share": []}
+    g1 = sum(float(g.abs().sum()) for g in G32)
+    for eta in TRAIN_WIT_ETAS:
+        for w, src, g in zip(W32, W16, G32):
+            w.copy_(src).add_(torch.sign(g), alpha=-eta)
+        res["sign_step"]["f32"].append(loss(cfg32, w32))
+        res["sign_step"]["f32_first_order"].append(l32.item() - eta * g1)
+    for w, src in zip(W32, W16):
+        w.copy_(src)
+    for eta in TRAIN_WIT_ETAS:
+        changed = 0
+        for w, src, g in zip(W16, W32, G16):
+            new = (src - eta * torch.sign(g.float())).to(w.dtype)
+            if w.dtype != torch.float32:
+                changed += int((new != w).sum())
+            w.copy_(new)
+        res["sign_step"]["bf16"].append(loss(cfg, w16))
+        res["sign_step"]["bf16_changed_share"].append(changed / n16)
+        for w, src in zip(W16, W32):
+            w.copy_(src)
+    del w32, g16, g32, W32, G16, G32
+
+    worst_fd = max(res["fd"].items(), key=lambda kv: kv[1]["rel"])
+    worst_bf = max(((n, v) for n, v in res["grad_bf16_vs_f32"].items()
+                    if n != "embed[batch rows]"), key=lambda kv: kv[1])
+    embed_bf = res["grad_bf16_vs_f32"]["embed[batch rows]"]
+    loss_rel = abs(res["loss_bf16"] - res["loss_f32"]) / res["loss_f32"]
+    res["loss_rel"] = loss_rel
+    say("train", f"witness ({cfg.name}, {tuple(batch['labels'].shape)} "
+                 f"tokens): loss bf16 {res['loss_bf16']:.6f}, f32 twin "
+                 f"{res['loss_f32']:.6f} (rel {loss_rel:.3e})")
+    say("train", "central differences / ||g||^2 - 1 by leaf (f32 twin, "
+                 f"gate {TRAIN_FD_RTOL}): " + ", ".join(
+                     f"{n} {r['rel']:.2e} (||g||^2 {r['g2']:.4g})"
+                     for n, r in res["fd"].items()))
+    say("train", "||g_bf16 - g_f32|| / ||g_f32|| by leaf (gate "
+                 f"{TRAIN_BF16_GRAD_TOL}; embed's {res['embed_batch_rows']} "
+                 f"batch rows {TRAIN_BF16_EMBED_TOL}): " + ", ".join(
+                     f"{n} {v:.4f}" for n, v in
+                     res["grad_bf16_vs_f32"].items()))
+    st = res["sign_step"]
+    say("train", f"loss after w - eta sign(g), eta {st['eta']}: f32 "
+                 f"{[round(x, 4) for x in st['f32']]} (first order "
+                 f"{[round(x, 2) for x in st['f32_first_order']]}; from "
+                 f"{res['loss_f32']:.4f}), bf16 "
+                 f"{[round(x, 4) for x in st['bf16']]} (bf16 elements "
+                 f"changed {[round(x, 4) for x in st['bf16_changed_share']]})")
+    if worst_fd[1]["rel"] > TRAIN_FD_RTOL:
+        raise AssertionError(f"the f32 gradient of {worst_fd[0]} disagrees "
+                             f"with central differences: {worst_fd[1]}")
+    if worst_bf[1] > TRAIN_BF16_GRAD_TOL or loss_rel > TRAIN_BF16_LOSS_RTOL \
+            or embed_bf > TRAIN_BF16_EMBED_TOL:
+        raise AssertionError(f"the bf16 gradient of {worst_bf[0]}, the "
+                             f"embedding's batch rows or the loss is off "
+                             f"its f32 twin's: {worst_bf[1]}, {embed_bf}, "
+                             f"{loss_rel}")
+    return res
+
+
+def _leaf_paths(tree, pre: str = "") -> list:
+    """'a/b' names of a tree's leaves, in ``tree_leaves`` order."""
+    out = []
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            out += _leaf_paths(tree[k], pre + k + "/")
+        else:
+            out.append(pre + k)
+    return out
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -2886,9 +3362,11 @@ def _leaves(tree):
 
 
 def _widened(tree):
-    """A parameter tree with every leaf cast to f32 (new tensors)."""
-    return {k: _widened(v) if isinstance(v, dict) else v.float()
-            for k, v in tree.items()}
+    """A parameter tree with every leaf cast to f32 (new tensors, also
+    for leaves that are f32 already)."""
+    import torch
+    return {k: _widened(v) if isinstance(v, dict)
+            else v.to(torch.float32, copy=True) for k, v in tree.items()}
 
 
 def _device_busy(prof) -> dict:
@@ -2919,7 +3397,10 @@ def _stage_device_ms(prof) -> dict:
 def _kernel_split(busy: dict) -> dict:
     """A profile's device ms by kind of kernel: GEMMs (cuBLAS/CUTLASS
     products, f32 and bf16 apart), the flash kernel, copies (casts of
-    weights and activations to f32 among them), and the rest."""
+    weights and activations to f32 among them), and the rest.  cuBLASLt's
+    ``nvjet`` kernels are Hopper tensor-core GEMMs: with TF32 off (as
+    main sets it) they take 16-bit operands, so they count as bf16
+    whatever their names say (f32 products run as ``ffma`` kernels)."""
     split = dict.fromkeys(("gemm_f32", "gemm_bf16", "flash", "copy",
                            "other"), 0.0)
     for k, v in busy.items():
@@ -2928,7 +3409,8 @@ def _kernel_split(busy: dict) -> dict:
             split["flash"] += v
         elif any(w in low for w in ("gemm", "xmma", "cutlass", "nvjet")):
             split["gemm_bf16" if any(w in low for w in (
-                "bf16", "bfloat16", "_hsh", "_bsb")) else "gemm_f32"] += v
+                "bf16", "bfloat16", "_hsh", "_bsb", "nvjet")) else
+                "gemm_f32"] += v
         elif "copy" in low:
             split["copy"] += v
         else:
@@ -2972,6 +3454,7 @@ def main() -> int:
     arms = phase_lm_arms()
     bench = phase_bench()
     serving = phase_serving(card, globe)
+    phase_train()
     top_shapes = phase_workflow_shapes({"zip workflow": zip_shapes,
                                         "store+screen workflow":
                                             screen_shapes,

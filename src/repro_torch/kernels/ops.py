@@ -161,7 +161,23 @@ def flash_attention(q, k, v, *, causal: bool = True,
     (B,KV,S,hd) -> (B,H,T,hd) in q's dtype, query t attending keys
     <= t + (S - T) when ``causal``.  Views (the attention layer hands
     over transposed ones) are made contiguous here; the kernel takes any
-    T and S, so nothing is padded.  See ref.flash_attention_ref."""
+    T and S, so nothing is padded.  See ref.flash_attention_ref.
+
+    It has no gradient, on either backend or device: with grad mode on
+    and q, k or v requiring grad it raises ``NotImplementedError``, as
+    ``jax.grad`` of the reference's kernel fails in ``pallas_call``'s
+    JVP rule (``_pallas_call_jvp_rule``).  The kernels are bound through
+    ``ctypes``, so their output would otherwise carry no ``grad_fn`` and
+    a backward would silently drop the q/k/v gradients.  Train with
+    ``attention_impl="xla"``, as every config does."""
+    if torch.is_grad_enabled() and any(
+            isinstance(x, torch.Tensor) and x.requires_grad
+            for x in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention has no gradient: the reference's Pallas "
+            "kernel cannot be differentiated either (jax.grad fails in "
+            "pallas_call's JVP rule, _pallas_call_jvp_rule); train with "
+            "attention_impl='xla'")
     _check_backend(backend)
     q, k, v = (torch.as_tensor(x).contiguous() for x in (q, k, v))
     if backend == "ref":

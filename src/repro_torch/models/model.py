@@ -21,7 +21,8 @@ Public API:
 
 The functions that make tensors put them on the card unless ``device``
 names another (``"cpu"``); the others run where the parameters are.
-Gradients and training wait for a later slice (ROADMAP, queue 1).
+``forward`` and ``loss_fn`` are differentiable (``launch/steps.py``
+trains through them), with the reference's rematerialization policies.
 """
 
 from __future__ import annotations
@@ -55,7 +56,20 @@ def tree_map(fn, tree):
 
 
 def _index(tree, i: int):
+    """Superblock ``i``'s slice of a stacked tree (for inspecting one
+    superblock; the model's own loops take :func:`_unbind`)."""
     return tree_map(lambda x: x[i], tree)
+
+
+def _unbind(tree, n: int) -> list:
+    """The ``n`` per-superblock slices of a stacked tree, taken with one
+    ``unbind`` per leaf: its backward is one ``stack``, where a select
+    per superblock would write a dense gradient of the whole leaf each
+    time."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return tree.unbind(0)
 
 
 def _put(dst: dict, src: dict, i: int) -> None:
@@ -71,17 +85,26 @@ def _put(dst: dict, src: dict, i: int) -> None:
 # Initialization
 # ---------------------------------------------------------------------------
 
-def _init(gen: torch.Generator, shape, dtype,
+_META = torch.device("meta")
+
+
+def _device(gen: Optional[torch.Generator]) -> torch.device:
+    """Where ``gen`` draws; no generator draws shapes alone (meta)."""
+    return _META if gen is None else gen.device
+
+
+def _init(gen: Optional[torch.Generator], shape, dtype,
           scale: Optional[float] = None) -> torch.Tensor:
     """N(0, 1) * scale drawn in f32, cast to ``dtype`` (``shape[0] **
     -0.5`` by default, as the JAX package's ``_init``)."""
     scale = scale if scale is not None else shape[0] ** -0.5
     return torch.randn(shape, generator=gen, dtype=F32,
-                       device=gen.device).mul_(scale).to(dtype)
+                       device=_device(gen)).mul_(scale).to(dtype)
 
 
-def _full(shape, value: float, dtype, gen: torch.Generator) -> torch.Tensor:
-    return torch.full(shape, value, dtype=dtype, device=gen.device)
+def _full(shape, value: float, dtype,
+          gen: Optional[torch.Generator]) -> torch.Tensor:
+    return torch.full(shape, value, dtype=dtype, device=_device(gen))
 
 
 def _init_ffn(cfg: ArchConfig, gen: torch.Generator) -> dict:
@@ -113,7 +136,8 @@ def _init_mamba(cfg: ArchConfig, gen: torch.Generator) -> dict:
     d, di, ds, K = cfg.d_model, cfg.d_inner, cfg.d_state, cfg.d_conv
     R = max(d // 16, 1)
     dt = _dtype(cfg)
-    a_log = torch.log(torch.arange(1, ds + 1, dtype=F32, device=gen.device))
+    a_log = torch.log(torch.arange(1, ds + 1, dtype=F32,
+                                   device=_device(gen)))
     return {
         "in_proj": _init(gen, (d, 2 * di), dt),
         "conv_w": _init(gen, (di, K), dt, scale=0.3),
@@ -183,7 +207,7 @@ def init_sublayer_params(cfg: ArchConfig, generator: torch.Generator,
     return p
 
 
-def init_params(cfg: ArchConfig, generator: torch.Generator,
+def init_params(cfg: ArchConfig, generator: Optional[torch.Generator],
                 device=None) -> dict:
     """Random parameters of the JAX package's shapes, scales and dtypes,
     drawn from ``generator`` on its device and placed on ``device``
@@ -192,7 +216,8 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     :func:`params_from_numpy` instead.  Sublayers are drawn one at a
     time and copied into the stacked leaves, so a full-width model needs
     one sublayer's parameters (and its largest f32 draw) beside its
-    own."""
+    own.  ``generator=None`` with ``device="meta"`` gives the shapes and
+    dtypes alone, allocating nothing (``launch.steps.param_specs``)."""
     device = ops.resolve_device(device)
     gen = generator
     dt = _dtype(cfg)
@@ -280,21 +305,57 @@ def superblock_apply(cfg: ArchConfig, block_params: dict,
     return x
 
 
-# The JAX package's rematerialization policies, by name.
-REMAT_POLICIES = ("nothing", "dots_no_batch", "everything")
+def _save_products_without_batch(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``"dots_no_batch"``
+    (``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``): keep
+    the outputs of the products with no batch dimension — the weight
+    products, which ``torch.einsum`` runs as ``bmm`` with a batch of 1 —
+    and recompute everything else (the attention's and the experts'
+    batched products included)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default) or (
+            op is aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_no_batch_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    return create_selective_checkpoint_contexts(_save_products_without_batch)
+
+
+# The JAX package's rematerialization policies, by name: the selective
+# checkpoint context of each (None: recompute everything, as
+# ``nothing_saveable``); "everything" saves every residual, which is no
+# rematerialization at all.
+REMAT_POLICIES = {"nothing": None, "dots_no_batch": _dots_no_batch_context,
+                  "everything": None}
 
 
 def forward_trunk(cfg: ArchConfig, params: dict, x: torch.Tensor,
                   remat: bool = True,
                   remat_policy: str = "nothing") -> torch.Tensor:
-    """The superblocks in turn.  ``remat`` and ``remat_policy`` are the
-    reference's arguments, with its defaults; an unknown policy raises
-    ``KeyError`` as there.  Values do not depend on either: they take
-    effect once training is ported (ROADMAP, queue 1)."""
-    if remat_policy not in REMAT_POLICIES:
-        raise KeyError(remat_policy)
-    for sb in range(cfg.n_superblocks):
-        x = superblock_apply(cfg, _index(params["blocks"], sb), x, sb)
+    """The superblocks in turn.  With ``remat`` (and a policy other than
+    "everything") each superblock runs under
+    ``torch.utils.checkpoint.checkpoint``: backward recomputes its
+    activations, all of them ("nothing") or all but the products without
+    a batch dimension ("dots_no_batch"), as the reference's
+    ``jax.checkpoint`` of its scan body does.  Values do not depend on
+    either argument; an unknown policy raises ``KeyError`` as there."""
+    context = REMAT_POLICIES[remat_policy]
+    # Without a graph being recorded there is nothing to rematerialize.
+    remat = (remat and remat_policy != "everything"
+             and torch.is_grad_enabled())
+    blocks = _unbind(params["blocks"], cfg.n_superblocks)
+    for sb, block_p in enumerate(blocks):
+        if not remat:
+            x = superblock_apply(cfg, block_p, x, sb)
+            continue
+        kw = {} if context is None else {"context_fn": context}
+        x = torch.utils.checkpoint.checkpoint(
+            superblock_apply, cfg, block_p, x, sb, use_reentrant=False,
+            **kw)
     return x
 
 
@@ -433,10 +494,11 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict,
     it was).  MoE layers are picked by their index within the period, as
     the reference's scan body picks them."""
     x = encode_inputs(cfg, params, batch)
+    blocks = _unbind(params["blocks"], cfg.n_superblocks)
+    caches = _unbind(cache, cfg.n_superblocks)
     new_caches = []
     for sb in range(cfg.n_superblocks):
-        block_p = _index(params["blocks"], sb)
-        blk_cache = _index(cache, sb)
+        block_p, blk_cache = blocks[sb], caches[sb]
         nc_sb = {}
         for i, kind in enumerate(cfg.block_pattern):
             x, nc_sb[f"s{i}"] = _apply_sublayer_decode(
@@ -479,8 +541,7 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict,
     x = encode_inputs(cfg, params, batch)
     cache_len = cache_len or x.shape[1]
     caches = []
-    for sb in range(cfg.n_superblocks):
-        block_p = _index(params["blocks"], sb)
+    for block_p in _unbind(params["blocks"], cfg.n_superblocks):
         nc_sb = {}
         for i, kind in enumerate(cfg.block_pattern):
             p = block_p[f"s{i}"]

@@ -175,6 +175,13 @@ def _cli_args(tmp_path) -> dict:
     }
 
 
+# The CLIs whose artifacts hold a wall-clock speed gate, by its metric.
+# Under the suite's parallel load the storage feed's speedup over the
+# CSV-zip path fell from 5.38 to 2.11 in a run here, and below its 2.0
+# gate in one full run.
+CLOCK_GATED = {"kernels": "speedup_x", "storage": "feed_speedup_x"}
+
+
 @pytest.mark.parametrize("cli", ["campaign", "kernels", "storage",
                                  "encounters", "scheduling", "compare"])
 def test_bench_cli_runs_without_jax(tmp_path, cli):
@@ -185,7 +192,16 @@ def test_bench_cli_runs_without_jax(tmp_path, cli):
         capture_output=True, text=True, env=env, timeout=240)
     assert proc.returncode == 0, proc.stderr[-4000:]
     doc = json.loads(proc.stdout.strip().splitlines()[-1])
-    # kernels: on the CPU only its clock gate (speedup_x) may fail
-    assert doc["code"] in ((0, 1) if cli == "kernels" else (0,)), \
+    # kernels and storage: on a loaded CPU only their clock gates may
+    # fail; every other gate (storage's bitwise feed and identical
+    # rebuilds) must pass
+    assert doc["code"] in ((0, 1) if cli in CLOCK_GATED else (0,)), \
         proc.stdout[-4000:]
     assert doc["foreign"] == []
+    if cli in CLOCK_GATED:
+        art = json.loads((tmp_path / "out.json").read_text())
+        checks = [c for sc in art["scenarios"] for c in sc["checks"]]
+        assert checks and all(c["passed"] for c in checks
+                              if c["metric"] != CLOCK_GATED[cli]), checks
+        if cli == "storage":
+            assert any(c["metric"] == "feed_bitwise_equal" for c in checks)

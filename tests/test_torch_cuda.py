@@ -1169,3 +1169,109 @@ def test_live_ingested_store_on_card_matches_batch_store(dev, tmp_path):
                          "heading_rad", "turn_rad_s"):
                 assert getattr(g, attr).tobytes() \
                     == getattr(w, attr).tobytes(), (tid, attr)
+
+
+# ---------------------------------------------------------------------------
+# Training on the card (chip_smoke.py phase 10 runs these at full width).
+# ---------------------------------------------------------------------------
+
+def _zipf_batches(vocab, n, B=4, T=64, seed=0):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        toks = np.minimum(rng.zipf(1.5, size=(B, T + 1)),
+                          vocab - 1).astype(np.int32)
+        out.append({"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    return out
+
+
+def test_reduced_train_steps_card_match_cpu(dev):
+    """Three AdamW steps of the f32 variant of reduced minicpm-2b from the
+    same weights: losses within 1e-4 relative, ||card - CPU|| / ||CPU||
+    over the parameters within 1e-4 (an element whose gradient is near
+    0 may take Adam's step the other way)."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as O
+    cfg, host = _reduced_lm("minicpm-2b")
+    tree = M.tree_map(lambda t: t.numpy(), host)
+    opt = O.OptimizerConfig(lr=1e-3)
+    runs = {}
+    for where in ("cuda", "cpu"):
+        params = M.params_from_numpy(cfg, tree, where)
+        state = O.init_opt_state(params, opt)
+        step = ST.make_train_step(cfg, opt)
+        losses = []
+        for b in _zipf_batches(cfg.vocab_size, 3, seed=1):
+            _, _, met = step(params, state, {k: torch.from_numpy(v).to(where)
+                                             for k, v in b.items()})
+            losses.append(met["loss"].item())
+        runs[where] = (losses, O.tree_leaves(params))
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-4)
+    num = sum(float(((a.detach().cpu().double() - b.detach().double()) ** 2)
+                    .sum()) for a, b in zip(runs["cuda"][1], runs["cpu"][1]))
+    den = sum(float((b.detach().double() ** 2).sum()) for b in runs["cpu"][1])
+    assert (num / den) ** 0.5 <= 1e-4
+
+
+def test_trainer_resumes_on_card_and_keeps_no_tensor(dev, tmp_path):
+    """bf16 reduced minicpm-2b: a run checkpointed at step 2 and resumed
+    by a fresh Trainer gives the uninterrupted run's losses (1e-3
+    relative, under one bf16 rounding), and a step leaves the card's
+    allocated memory as it found it."""
+    from repro_torch.configs import get_arch
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = get_arch("minicpm-2b", reduced=True)
+    batches = _zipf_batches(cfg.vocab_size, 6, seed=2)
+    kw = dict(total_steps=6, ckpt_every=2, log_every=100, peak_lr=1e-2,
+              warmup_steps=1)
+
+    def trainer(name):
+        return Trainer(cfg, O.OptimizerConfig(),
+                       TrainerConfig(workdir=str(tmp_path / name), **kw))
+    whole = trainer("whole")
+    assert whole.device.type == "cuda"
+    allocated = []
+    for b in batches:
+        whole.run(iter([b]), 1)
+        allocated.append(torch.cuda.memory_allocated())
+    whole.close()
+    assert len(set(allocated)) == 1, allocated
+    want = [r["loss"] for r in whole.metrics_log]
+    first = trainer("resumed")
+    first.run(iter(batches[:3]), 3)
+    first.close()
+    second = trainer("resumed")
+    assert second.step == 3
+    got = [r["loss"] for r in second.run(iter(batches[3:]), 3)]
+    second.close()
+    np.testing.assert_allclose(got, want[3:], rtol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_refuses_gradients_on_card(dev, dtype):
+    """Both routes raise under grad, as on the CPU, instead of returning
+    an output with no grad_fn."""
+    from repro_torch.kernels import ops
+    q = torch.randn(1, 4, 128, 64, device=dev, dtype=dtype,
+                    requires_grad=True)
+    k = torch.randn(1, 4, 128, 64, device=dev, dtype=dtype)
+    with pytest.raises(NotImplementedError, match="_pallas_call_jvp_rule"):
+        ops.flash_attention(q, k, k)
+    with torch.no_grad():
+        assert ops.flash_attention(q, k, k).shape == q.shape
+
+
+def test_train_cli_on_card(dev, tmp_path):
+    """``python -m repro_torch.launch.train --reduced`` trains on the card
+    by default."""
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--reduced",
+         "--steps", "4", "--batch-size", "2", "--seq-len", "32",
+         "--ckpt-every", "2", "--workdir", str(tmp_path)],
+        capture_output=True, text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "over 4 steps" in proc.stdout and "on cuda" in proc.stdout
