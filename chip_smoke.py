@@ -199,6 +199,29 @@ Phases, each printed as it runs:
              same weights (losses and ||dparams|| / ||params|| within
              1e-4); and a bf16 run checkpointed at step 2 and resumed by
              a fresh Trainer against the uninterrupted run (1e-3).
+11. mesh   — the mesh tools, with every kernel counter zeroed just
+             before and read just after (all read 0).  (a) The dry run
+             (``python -m repro_torch.launch.dryrun --all --multi-pod
+             both``, processes backend, one job a core) in a subprocess
+             that sees no card: every (arch x shape x mesh) cell of the
+             ten configs traced on the fake 512-rank process group must
+             be ``ok``, with compute and memory terms above 0 and a
+             collective term at 0 or above at the H100's datasheet
+             constants; a line a cell (planning estimates from traced
+             graphs, not measurements).  (b) On the card, while (a)
+             runs: a one-GPU ``DeviceMesh`` (NCCL, world 1) from
+             ``mesh_from_triples``; ``Trainer(mesh=...)`` trains
+             minicpm-2b at full width on phase 10's batches and lr, its
+             losses against phase 10's (1e-3; bitwise expected) with
+             allocated memory flat step to step, and its build's peak
+             above the placed leaves within twice the larger of the
+             largest top-level leaf and one superblock in f32 (leaves
+             are placed one at a time);
+             a bf16 reduced run
+             re-meshed onto a fresh one-GPU mesh at step 3 against phase
+             10's uninterrupted run (1e-3); and
+             ``make_compressed_allreduce`` over a one-pod mesh bitwise
+             ``compressed_psum_leaf`` of one pod.
 
 The line before the last is the card's name and power limit; before it
 one JSON object lists every kernel with its timings.  The last line is
@@ -3188,6 +3211,7 @@ def phase_train(device: str = "cuda") -> dict:
     whole = trainer("whole")
     want = [r["loss"] for r in whole.run(iter(rb), TRAIN_RESUME_STEPS)]
     whole.close()
+    out["resume_want"] = want
     first = trainer("resumed")
     first.run(iter(rb[:half]), half)
     first.close()
@@ -3224,6 +3248,261 @@ def phase_train(device: str = "cuda") -> dict:
     out["phase_s"] = time.perf_counter() - t_phase
     say("train", f"phase 10 in {out['phase_s']:.1f}s")
     say("train", "summary " + json.dumps(out))
+    # phase 11 trains on the same batches
+    out["batches"], out["resume_batches"] = batches, rb
+    return out
+
+
+MESH_LOSS_RTOL = 1e-3        # mesh Trainer against phase 10's, a step
+MESH_DRYRUN_TIMEOUT_S = 600
+
+
+def phase_mesh(train: dict, card: str) -> dict:
+    """Phase 11: (a) the dry run's sweep in a subprocess without the card
+    (the fake process group cannot share a process with NCCL), started
+    first; (b) the one-GPU mesh on the card while it runs; then (a)'s
+    records read and held."""
+    import gc
+    import glob
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import ARCHS, shapes_for
+    from repro_torch.kernels import (agl_lookup, dynamic_rates,
+                                     encounter_screen, track_interp)
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.launch.mesh import HBM_BW, LINK_BW, PEAK_FLOPS_BF16
+    from repro_torch.roofline.analysis import compute_terms
+
+    t_phase = time.perf_counter()
+    mods = {"track_interp": track_interp, "agl_lookup": agl_lookup,
+            "dynamic_rates": dynamic_rates,
+            "encounter_screen": encounter_screen}
+    zero_counters(mods)
+    flash_mod.launches = 0
+    out: dict = {}
+
+    # (a) started now, read at the end
+    dr_dir = tempfile.mkdtemp(prefix="dryrun_", dir=WORK)
+    jobs = os.cpu_count() or 1
+    env = dict(os.environ, PYTHONPATH=SRC, CUDA_VISIBLE_DEVICES="")
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+           "--multi-pod", "both", "--jobs", str(jobs), "--exec-backend",
+           "processes", "--out", dr_dir]
+    t_dry = time.perf_counter()
+    dry_log = os.path.join(WORK, "dryrun.log")
+    with open(dry_log, "w") as f:
+        dry = subprocess.Popen(cmd, env=env, cwd=HERE, stdout=f,
+                               stderr=subprocess.STDOUT)
+    try:
+        out["card"] = _mesh_on_card(train, card)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+        try:
+            dry.wait(timeout=MESH_DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            dry.kill()
+            dry.wait()
+            raise
+    dry_s = time.perf_counter() - t_dry
+    with open(dry_log) as f:
+        log = f.read()
+    if dry.returncode != 0:
+        print(log[-4000:])
+        raise AssertionError(f"the dry run exited {dry.returncode}")
+
+    recs = [json.load(open(p)) for p in sorted(glob.glob(
+        os.path.join(dr_dir, "*.json")))]
+    want_cells = 2 * sum(len(shapes_for(cfg)) for cfg in ARCHS.values())
+    bad = [(r["arch"], r["shape"], r["mesh"], r.get("error"))
+           for r in recs if not r["ok"]]
+    if len(recs) != want_cells or bad:
+        print(log[-4000:])
+        for r in recs:
+            if not r["ok"]:
+                print(r["arch"], r["shape"], r["mesh"], r.get("traceback"))
+        raise AssertionError(f"dry run: {len(recs)} of {want_cells} cells "
+                             f"written, not ok: {bad}")
+    say("mesh", f"dry run: {len(recs)} (arch x shape x mesh) cells ok in "
+                f"{dry_s:.1f}s wall ({jobs} processes, no card); roofline "
+                f"at the H100 SXM datasheet constants ({PEAK_FLOPS_BF16:.3g}"
+                f" FLOP/s bf16, {HBM_BW:.3g} B/s HBM, {LINK_BW:.3g} B/s a "
+                f"link), planning estimates from traced graphs, not "
+                f"measurements")
+    cells = []
+    for r in recs:
+        t = compute_terms(r)
+        if not (t.compute_s > 0 and t.memory_s > 0
+                and t.collective_s >= 0):
+            raise AssertionError(f"dry run terms not positive: {t}")
+        cells.append({"arch": t.arch, "shape": t.shape, "mesh": t.mesh,
+                      "compute_s": t.compute_s, "memory_s": t.memory_s,
+                      "collective_s": t.collective_s,
+                      "bottleneck": t.bottleneck,
+                      "useful_ratio": t.useful_ratio,
+                      "roofline_fraction": t.roofline_fraction,
+                      "trace_s": r["total_s"]})
+        say("mesh", f"roofline {t.arch} {t.shape} {t.mesh}: compute "
+                    f"{t.compute_s:.6g}s memory {t.memory_s:.6g}s "
+                    f"collective {t.collective_s:.6g}s bottleneck "
+                    f"{t.bottleneck} useful {t.useful_ratio:.4f} "
+                    f"roofline {t.roofline_fraction:.4f} (traced in "
+                    f"{r['total_s']}s)")
+    out["dryrun"] = {"cells": cells, "wall_s": dry_s, "jobs": jobs}
+    shutil.rmtree(dr_dir, ignore_errors=True)
+
+    launches = {name: mod.launches for name, mod in mods.items()}
+    launches["flash_attention"] = flash_mod.launches
+    say("mesh", f"kernel launches in phase 11 (counters zeroed just "
+                f"before): {launches}")
+    if any(launches.values()):
+        raise AssertionError(f"phase 11 launched kernels: {launches}")
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    say("mesh", f"phase 11 in {out['phase_s']:.1f}s (dry run "
+                f"{dry_s:.1f}s beside the card's part); {card}")
+    say("mesh", "summary " + json.dumps(out))
+    return out
+
+
+def _mesh_on_card(train: dict, card: str) -> dict:
+    """Phase 11 (b): the one-GPU mesh (see :func:`phase_mesh`)."""
+    import gc
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.triples import TriplesConfig
+    from repro_torch.launch import steps as step_lib
+    from repro_torch.launch.mesh import (
+        make_mesh, mesh_from_triples, start_single_process_group)
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.compression import (
+        compressed_psum_leaf, make_compressed_allreduce)
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    out: dict = {}
+    root = os.path.join(WORK, "mesh")
+    shutil.rmtree(root, ignore_errors=True)
+    start_single_process_group("nccl")
+    mesh = mesh_from_triples(TriplesConfig(nodes=1, nppn=1,
+                                           threads_per_process=1),
+                             chips_per_node=1)
+    say("mesh", f"one-GPU mesh from the triple (1, 1, 1): {mesh}")
+
+    # full width, phase 10's batches and schedule
+    cfg = get_arch(TRAIN_ARCH)
+    batches = train["batches"]
+    want = train["full"]["losses"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, O.OptimizerConfig(),
+                 TrainerConfig(workdir=os.path.join(root, "full"),
+                               total_steps=TRAIN_STEPS, ckpt_every=0,
+                               warmup_steps=2, log_every=1,
+                               peak_lr=TRAIN_PEAK_LR), mesh=mesh)
+    torch.cuda.synchronize()
+    built_s = time.perf_counter() - t0
+    # The mesh Trainer draws and places its leaves one at a time: while
+    # it builds, at most one top-level leaf's or one superblock's f32
+    # draws are alive beside the placed shards (twice that for the
+    # copies distribute_tensor may make).  On one GPU the shards are the
+    # whole leaves, so this holds the build to its final residency plus
+    # that transient, not to a share of the model.
+    held = torch.cuda.memory_allocated() - before
+    above = torch.cuda.max_memory_allocated() - before - held
+    specs = step_lib.param_specs(cfg)
+    top = max(x.numel() for k, x in specs.items() if k != "blocks")
+    sb = sum(x.numel() // cfg.n_superblocks
+             for x in O.tree_leaves(specs["blocks"]))
+    bound = 2 * 4 * max(top, sb)
+    out["build_memory"] = {"held": held, "peak_above_held": above,
+                           "bound": bound}
+    say("mesh", f"Trainer(mesh=...) build: {held / 1e9:.3f} GB held "
+                f"(parameters and moments), peak {above / 1e9:.3f} GB "
+                f"above it (bound {bound / 1e9:.3f} GB: twice the larger "
+                f"of the largest top-level leaf and one superblock, in "
+                f"f32); {card}")
+    if above > bound:
+        raise AssertionError("the mesh Trainer held whole leaves at once")
+    resident = []
+    for b in batches:
+        tr.run(iter([b]), 1)
+        resident.append(torch.cuda.memory_allocated())
+    got = [r["loss"] for r in tr.metrics_log]
+    tr.close()
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    out["full"] = {"losses": got, "want": want, "rel": rel,
+                   "bitwise": got == want, "built_s": built_s,
+                   "allocated": resident}
+    say("mesh", f"Trainer(mesh=...) {cfg.name} full width, {len(got)} "
+                f"steps of {TRAIN_B} x {TRAIN_T}: losses {got} vs phase "
+                f"10's {want}, max rel {rel:.3e} (gate {MESH_LOSS_RTOL}), "
+                f"bitwise {got == want}; allocated after each step (GB) "
+                f"{[round(x / 1e9, 3) for x in resident]}; {card}")
+    if rel > MESH_LOSS_RTOL:
+        raise AssertionError("the mesh Trainer left the device Trainer")
+    if len(set(resident)) != 1:
+        raise AssertionError("a mesh training step left tensors behind")
+
+    # re-mesh onto a fresh one-GPU mesh, phase 10 (d)'s bf16 run
+    cfgr = get_arch(TRAIN_ARCH, reduced=True)
+    rb = train["resume_batches"]
+    want = train["resume_want"]
+    half = TRAIN_RESUME_STEPS // 2
+    tr = Trainer(cfgr, O.OptimizerConfig(),
+                 TrainerConfig(workdir=os.path.join(root, "remesh"),
+                               total_steps=TRAIN_RESUME_STEPS, ckpt_every=2,
+                               log_every=100, peak_lr=1e-2,
+                               warmup_steps=1), mesh=mesh)
+    tr.run(iter(rb[:half]), half)
+    fresh = make_mesh((1, 1, 1), ("nodes", "data", "model"))
+    tr.remesh(fresh)
+    if tr.mesh is not fresh or tr.step != half + 1:
+        raise AssertionError(f"re-mesh resumed at step {tr.step}")
+    tr.run(iter(rb[half:]), half)
+    tr.close()
+    got = [r["loss"] for r in tr.metrics_log]
+    # As in the reference, the re-meshed run resumes at the step after
+    # the committed one, so its schedule skips one step: the losses up
+    # to the first one after the re-mesh (from the restored weights)
+    # are the uninterrupted run's; later ones take other lrs.
+    n = half + 1
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got[:n], want[:n]))
+    out["remesh"] = {"losses": got, "want": want, "rel": rel,
+                     "bitwise": got[:n] == want[:n]}
+    say("mesh", f"re-mesh ({cfgr.name}, bf16, onto a fresh one-GPU mesh "
+                f"after step {half - 1}, resumed at step {half + 1}): "
+                f"losses {got} vs phase 10's uninterrupted {want}; the "
+                f"first {n} max rel {rel:.3e} (gate {TRAIN_RESUME_RTOL}), "
+                f"bitwise {got[:n] == want[:n]}")
+    if rel > TRAIN_RESUME_RTOL:
+        raise AssertionError("the re-meshed run left the uninterrupted one")
+
+    # the compressed all-reduce over a one-pod mesh
+    pods = make_mesh((1, 1), ("pod", "data"))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    tree = {"a": torch.randn((4096, 1000), generator=g, device="cuda"),
+            "b": torch.randn((777,), generator=g, device="cuda")}
+    got = make_compressed_allreduce(pods, "pod")(
+        tree, torch.Generator(device="cuda").manual_seed(1))
+    g1 = torch.Generator(device="cuda").manual_seed(1)
+    want = {k: compressed_psum_leaf(tree[k][None], g1) for k in ("a", "b")}
+    same = all(torch.equal(got[k], want[k]) for k in want)
+    err = max(float((got[k] - tree[k]).abs().max()
+                    / tree[k].abs().max()) for k in tree)
+    out["compressed"] = {"bitwise": same, "max_rel_err": err}
+    say("mesh", f"make_compressed_allreduce over a one-pod mesh: bitwise "
+                f"compressed_psum_leaf {same}; max |out - in| / max |in| "
+                f"{err:.4f} (the reference's bound 0.02)")
+    if not same or err >= 0.02:
+        raise AssertionError("the compressed all-reduce disagrees")
     return out
 
 
@@ -3454,7 +3733,8 @@ def main() -> int:
     arms = phase_lm_arms()
     bench = phase_bench()
     serving = phase_serving(card, globe)
-    phase_train()
+    train = phase_train()
+    phase_mesh(train, card)
     top_shapes = phase_workflow_shapes({"zip workflow": zip_shapes,
                                         "store+screen workflow":
                                             screen_shapes,

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distribution.collectives import all_reduce
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
@@ -53,6 +54,12 @@ def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def gather_params(tree):
+    """Every DTensor leaf gathered over the batch axes where it is used
+    (FSDP, :func:`L.gather_param`); plain tensors as they are."""
+    return tree_map(L.gather_param, tree)
 
 
 def _index(tree, i: int):
@@ -208,7 +215,7 @@ def init_sublayer_params(cfg: ArchConfig, generator: torch.Generator,
 
 
 def init_params(cfg: ArchConfig, generator: Optional[torch.Generator],
-                device=None) -> dict:
+                device=None, shardings=None) -> dict:
     """Random parameters of the JAX package's shapes, scales and dtypes,
     drawn from ``generator`` on its device and placed on ``device``
     (default: the card).  The two frameworks' generators differ, so the
@@ -217,31 +224,85 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator],
     time and copied into the stacked leaves, so a full-width model needs
     one sublayer's parameters (and its largest f32 draw) beside its
     own.  ``generator=None`` with ``device="meta"`` gives the shapes and
-    dtypes alone, allocating nothing (``launch.steps.param_specs``)."""
+    dtypes alone, allocating nothing (``launch.steps.param_specs``).
+
+    ``shardings`` (a tree of ``distribution.sharding.NamedSharding``
+    like the parameters') gives DTensors on its mesh: each top-level
+    leaf is placed as it is drawn, and each sublayer's draw is cut to
+    this rank's shards of the stacked leaves, so that one leaf or one
+    sublayer at most is whole beside the shards.  The values are the
+    unsharded call's."""
     device = ops.resolve_device(device)
     gen = generator
     dt = _dtype(cfg)
+
+    def top(key: str, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(device)
+        return x if shardings is None else _distribute(x, shardings[key])
+
     params: dict[str, Any] = {
-        "embed": _init(gen, (cfg.vocab_size, cfg.d_model), dt, scale=0.02),
-        "final_norm": _full((cfg.d_model,), 1.0, F32, gen),
-    }
+        "embed": top("embed", _init(gen, (cfg.vocab_size, cfg.d_model), dt,
+                                    scale=0.02))}
+    params["final_norm"] = top("final_norm",
+                               _full((cfg.d_model,), 1.0, F32, gen))
     if not cfg.tie_embeddings:
-        params["unembed"] = _init(gen, (cfg.d_model, cfg.vocab_size), dt)
-    params = tree_map(lambda x: x.to(device), params)
+        params["unembed"] = top("unembed", _init(
+            gen, (cfg.d_model, cfg.vocab_size), dt))
     n, period = cfg.n_superblocks, cfg.pattern_period
     blocks: dict[str, Any] = {}
     for sb in range(n):
         for i in range(period):
             one = init_sublayer_params(cfg, gen, sb * period + i)
-            if sb == 0:
-                blocks[f"s{i}"] = tree_map(
-                    lambda x: torch.empty((n,) + tuple(x.shape),
-                                          dtype=x.dtype, device=device),
-                    one)
-            _put(blocks[f"s{i}"], one, sb)
+            if shardings is None:
+                if sb == 0:
+                    blocks[f"s{i}"] = tree_map(
+                        lambda x: torch.empty((n,) + tuple(x.shape),
+                                              dtype=x.dtype, device=device),
+                        one)
+                _put(blocks[f"s{i}"], one, sb)
+            else:
+                sh = shardings["blocks"][f"s{i}"]
+                if sb == 0:
+                    blocks[f"s{i}"] = _zip_map(
+                        lambda x, h: _empty_stacked(n, x, h), one, sh)
+                _zip_map(lambda x, h, dst: dst.to_local()[sb].copy_(
+                    _sublayer_shard(x.to(device), h)), one, sh,
+                    blocks[f"s{i}"])
             del one
     params["blocks"] = blocks
     return params
+
+
+def _zip_map(fn, tree, *others):
+    """``fn`` over the leaves of ``tree`` and of ``others`` (trees of
+    its structure)."""
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, *(o[k] for o in others))
+                for k, v in tree.items()}
+    return fn(tree, *others)
+
+
+def _distribute(x: torch.Tensor, sharding):
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(x, sharding.mesh, sharding.placements)
+
+
+def _empty_stacked(n: int, x: torch.Tensor, sharding):
+    """An uninitialised DTensor of ``(n, *x.shape)`` placed by
+    ``sharding``, allocating this rank's shards alone."""
+    from torch.distributed.tensor import empty
+    return empty((n,) + tuple(x.shape), dtype=x.dtype,
+                 device_mesh=sharding.mesh, placements=sharding.placements)
+
+
+def _sublayer_shard(x: torch.Tensor, stacked_sharding) -> torch.Tensor:
+    """This rank's shard of one sublayer's leaf ``x``, as a slot of the
+    stacked leaf placed by ``stacked_sharding`` holds it (the stacked
+    dim is never sharded, so its ``Shard(d)`` is ``x``'s ``Shard(d-1)``)."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+    pl = [Shard(p.dim - 1) if p.is_shard() else p
+          for p in stacked_sharding.placements]
+    return distribute_tensor(x, stacked_sharding.mesh, pl).to_local()
 
 
 def _tensor(a) -> torch.Tensor:
@@ -273,6 +334,7 @@ def _moe(cfg: ArchConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
 
 def _apply_sublayer(cfg: ArchConfig, kind: str, is_moe: bool, p: dict,
                     x: torch.Tensor) -> torch.Tensor:
+    x = L.as_batch(x)
     h = L.rms_norm(x, p["norm1"], cfg.rms_eps)
     if kind == "attn":
         h = L.attention_train(h, p["mixer"], n_heads=cfg.n_heads,
@@ -284,7 +346,7 @@ def _apply_sublayer(cfg: ArchConfig, kind: str, is_moe: bool, p: dict,
         h = S.mamba_train(h, p["mixer"], d_state=cfg.d_state)
     elif kind == "rwkv6":
         h = S.rwkv6_time_mix(h, p["mixer"], head_dim=cfg.rwkv_head_dim)
-    x = x + h
+    x = x + L.as_batch(h)
     h = L.rms_norm(x, p["norm2"], cfg.rms_eps)
     if kind == "rwkv6":
         h = S.rwkv6_channel_mix(h, p["ffn"])
@@ -292,12 +354,15 @@ def _apply_sublayer(cfg: ArchConfig, kind: str, is_moe: bool, p: dict,
         h = _moe(cfg, p["ffn"], h)
     else:
         h = L.mlp(h, p["ffn"], cfg.activation)
-    return x + h
+    return x + L.as_batch(h)
 
 
 def superblock_apply(cfg: ArchConfig, block_params: dict,
                      x: torch.Tensor, sb_index: int = 0) -> torch.Tensor:
-    """One period of the block pattern."""
+    """One period of the block pattern (DTensor parameters gathered over
+    the batch axes for it, as the reference's FSDP gathers each scanned
+    superblock)."""
+    block_params = gather_params(block_params)
     for i, kind in enumerate(cfg.block_pattern):
         layer_idx = sb_index * cfg.pattern_period + i
         x = _apply_sublayer(cfg, kind, cfg.is_moe_layer(layer_idx),
@@ -362,6 +427,8 @@ def forward_trunk(cfg: ArchConfig, params: dict, x: torch.Tensor,
 def encode_inputs(cfg: ArchConfig, params: dict,
                   batch: dict) -> torch.Tensor:
     """Token embedding, or the stubbed modality frontend's embeddings."""
+    if L.is_dtensor(params["embed"]):
+        return _encode_sharded(cfg, params, batch)
     dev = params["embed"].device
     if cfg.frontend is not None:
         return torch.as_tensor(batch["embeds"], device=dev).to(_adtype(cfg))
@@ -369,10 +436,22 @@ def encode_inputs(cfg: ArchConfig, params: dict,
     return params["embed"][tokens.long()].to(_adtype(cfg))
 
 
+def _encode_sharded(cfg: ArchConfig, params: dict,
+                    batch: dict) -> torch.Tensor:
+    """:func:`encode_inputs` on DTensors (the vocab-sharded embedding
+    through :func:`L.embedding_sharded`); the same rows."""
+    if cfg.frontend is not None:
+        return L.as_batch(batch["embeds"].to(_adtype(cfg)))
+    tokens = L.as_batch(batch["tokens"]).long()
+    embed = L.gather_param(params["embed"])
+    return L.as_batch(L.embedding_sharded(tokens, embed).to(_adtype(cfg)))
+
+
 def _unembed(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
-    x = L.rms_norm(x, params["final_norm"], cfg.rms_eps)
-    unembed = (params["embed"].T if cfg.tie_embeddings
-               else params["unembed"])
+    x = L.rms_norm(L.as_batch(x), L.gather_param(params["final_norm"]),
+                   cfg.rms_eps)
+    unembed = (L.gather_param(params["embed"]).T if cfg.tie_embeddings
+               else L.gather_param(params["unembed"]))
     return L.einsum("btd,dv->btv", x, unembed, F32)
 
 
@@ -393,6 +472,8 @@ def loss_fn(cfg: ArchConfig, params: dict, batch: dict,
     """Mean next-token NLL plus the z-loss over labels >= 0 (value only)."""
     logits = forward(cfg, params, batch, remat=remat,
                      remat_policy=remat_policy)         # (B, T, V) f32
+    if L.is_dtensor(logits):
+        return _loss_sharded(logits, batch["labels"], z_loss)
     labels = torch.as_tensor(batch["labels"], device=logits.device).long()
     valid = (labels >= 0).to(F32)
     lse = torch.logsumexp(logits, dim=-1)
@@ -400,6 +481,88 @@ def loss_fn(cfg: ArchConfig, params: dict, batch: dict,
                         torch.clamp(labels, min=0)[..., None])[..., 0]
     nll = (lse - gold) * valid
     zl = z_loss * torch.square(lse) * valid
+    return (nll.sum() + zl.sum()) / torch.clamp(valid.sum(), min=1.0)
+
+
+def _all_reduce(t: torch.Tensor, op: str, groups) -> torch.Tensor:
+    """``t`` reduced over each process group in turn."""
+    for g in groups:
+        t = all_reduce(t, op, g)
+    return t
+
+
+class _VocabShardedLoss(torch.autograd.Function):
+    """Per-token NLL and z-loss of one shard's logits (b, T, Vl) f32,
+    whose vocabulary starts at ``v0``, the row maximum, the sum of
+    exponentials and the gold logit reduced over the vocab shards'
+    ``groups``.  The gradient is local: (softmax - onehot) and the
+    z-loss term, from the saved softmax."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, v0: int, groups, z_loss: float):
+        valid = (labels >= 0).to(F32)
+        m = _all_reduce(torch.amax(logits, dim=-1), "max", groups)
+        e = torch.exp(logits - m[..., None])
+        se = _all_reduce(torch.sum(e, dim=-1), "sum", groups)
+        lse = m + torch.log(se)
+        lab = torch.clamp(labels, min=0) - v0
+        inside = (lab >= 0) & (lab < logits.shape[-1])
+        idx = torch.where(inside, lab, 0)
+        gold = torch.gather(logits, -1, idx[..., None])[..., 0]
+        gold = _all_reduce(gold * inside.to(F32), "sum", groups)
+        ctx.save_for_backward(e / se[..., None], idx, inside, valid, lse)
+        ctx.z_loss = z_loss
+        return (lse - gold) * valid, z_loss * torch.square(lse) * valid
+
+    @staticmethod
+    def backward(ctx, g_nll, g_zl):
+        soft, idx, inside, valid, lse = ctx.saved_tensors
+        onehot = torch.zeros_like(soft).scatter_(
+            -1, idx[..., None], inside[..., None].to(F32))
+        grad = (g_nll * valid)[..., None] * (soft - onehot) \
+            + (g_zl * valid * 2.0 * ctx.z_loss * lse)[..., None] * soft
+        return grad, None, None, None, None
+
+
+def _loss_sharded(logits, labels, z_loss: float):
+    """:func:`loss_fn`'s value on DTensor logits (B, T, V), each shard
+    holding its rows of the batch.  Where the vocabulary is sharded
+    (``gather`` has no sharding strategy, and DTensor's own reductions
+    gather the whole logits in the backward): the vocab-parallel cross
+    entropy, each shard's vocabulary slice local, three (B, T)
+    all-reduces over the vocab shards — the same loss, its rounding not
+    ``torch.logsumexp``'s.  Where it is whole: the plain formulas on
+    each shard's rows."""
+    from torch.distributed.tensor import DTensor, Replicate
+    logits = L.as_batch_vocab(logits)
+    mesh = logits.device_mesh
+    labels = L._redistribute(
+        L.as_batch(labels),
+        [p if p.is_shard() and p.dim == 0 else Replicate()
+         for p in logits.placements]).long()
+    vocab = [i for i, d in L.sharding_dims(logits) if d == 2]
+    lg, lab = logits.to_local(), labels.to_local()
+    if vocab:
+        coord = mesh.get_coordinate() or [0] * mesh.ndim
+        vl, v0 = lg.shape[-1], 0
+        for i in reversed(vocab):             # the last mesh dim is minor
+            v0 += coord[i] * vl
+            vl *= mesh.shape[i]
+        nll, zl = _VocabShardedLoss.apply(
+            lg, lab, v0, [mesh.get_group(i) for i in vocab], z_loss)
+    else:
+        valid = (lab >= 0).to(F32)
+        lse = torch.logsumexp(lg, dim=-1)
+        gold = torch.gather(lg, -1,
+                            torch.clamp(lab, min=0)[..., None])[..., 0]
+        nll = (lse - gold) * valid
+        zl = z_loss * torch.square(lse) * valid
+    tok = [p if p.is_shard() and p.dim == 0 else Replicate()
+           for p in logits.placements]
+    nll, zl = (DTensor.from_local(t, mesh, tok, run_check=False,
+                                  shape=labels.shape,
+                                  stride=labels.stride()) for t in (nll, zl))
+    valid = (labels >= 0).to(F32)
     return (nll.sum() + zl.sum()) / torch.clamp(valid.sum(), min=1.0)
 
 
@@ -461,6 +624,7 @@ def _stack(caches: list) -> dict:
 
 def _apply_sublayer_decode(cfg: ArchConfig, kind: str, is_moe: bool,
                            p: dict, cache: dict, x: torch.Tensor):
+    x = L.as_batch(x)
     h = L.rms_norm(x, p["norm1"], cfg.rms_eps)
     if kind == "attn":
         h, new_cache = L.attention_decode(
@@ -474,7 +638,7 @@ def _apply_sublayer_decode(cfg: ArchConfig, kind: str, is_moe: bool,
         h, tstate = S.rwkv6_time_mix_decode(h, cache["time"], p["mixer"],
                                             head_dim=cfg.rwkv_head_dim)
         new_cache = {"time": tstate, "channel": cache["channel"]}
-    x = x + h
+    x = x + L.as_batch(h)
     h = L.rms_norm(x, p["norm2"], cfg.rms_eps)
     if kind == "rwkv6":
         h, cstate = S.rwkv6_channel_mix(h, p["ffn"], state=cache["channel"],
@@ -484,7 +648,7 @@ def _apply_sublayer_decode(cfg: ArchConfig, kind: str, is_moe: bool,
         h = _moe(cfg, p["ffn"], h)
     else:
         h = L.mlp(h, p["ffn"], cfg.activation)
-    return x + h, new_cache
+    return x + L.as_batch(h), new_cache
 
 
 def decode_step(cfg: ArchConfig, params: dict, cache: dict,
@@ -498,7 +662,7 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict,
     caches = _unbind(cache, cfg.n_superblocks)
     new_caches = []
     for sb in range(cfg.n_superblocks):
-        block_p, blk_cache = blocks[sb], caches[sb]
+        block_p, blk_cache = gather_params(blocks[sb]), caches[sb]
         nc_sb = {}
         for i, kind in enumerate(cfg.block_pattern):
             x, nc_sb[f"s{i}"] = _apply_sublayer_decode(
@@ -519,14 +683,17 @@ def _attn_prefill_cache(cfg: ArchConfig, hn: torch.Tensor, p: dict,
     v = L.einsum("btd,dhk->bthk", hn, p["wv"], F32).to(dtype)
     pos = torch.arange(T, dtype=torch.int32, device=hn.device)[None]
     k = L.apply_rope(k, pos.expand(B, T), cfg.rope_theta)
+    # Along the sequence, which no layout shards: DTensors pad and roll
+    # shard by shard (torch 2.11's DTensor cannot redistribute for pad).
     if s >= T:
         pad = (0, 0, 0, 0, 0, s - T)
-        kc = torch.nn.functional.pad(k, pad)
-        vc = torch.nn.functional.pad(v, pad)
+        kc, vc = (L.same_local(
+            lambda t: torch.nn.functional.pad(t, pad), t) for t in (k, v))
     else:   # keep the last s positions (ring layout: slot=pos%s)
         roll = (T - s) % s
-        kc = torch.roll(k[:, T - s:], shifts=roll, dims=1)
-        vc = torch.roll(v[:, T - s:], shifts=roll, dims=1)
+        kc, vc = (L.same_local(
+            lambda t: torch.roll(t[:, T - s:], shifts=roll, dims=1), t)
+            for t in (k, v))
     return {"k": kc, "v": vc,
             "pos": torch.full((B,), T, dtype=torch.int32, device=hn.device)}
 
@@ -542,9 +709,11 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict,
     cache_len = cache_len or x.shape[1]
     caches = []
     for block_p in _unbind(params["blocks"], cfg.n_superblocks):
+        block_p = gather_params(block_p)
         nc_sb = {}
         for i, kind in enumerate(cfg.block_pattern):
             p = block_p[f"s{i}"]
+            x = L.as_batch(x)
             hn = L.rms_norm(x, p["norm1"], cfg.rms_eps)
             if kind == "attn":
                 hm = L.attention_train(hn, p["mixer"], n_heads=cfg.n_heads,
@@ -560,7 +729,7 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict,
                                               head_dim=cfg.rwkv_head_dim,
                                               return_state=True)
                 nc = {"time": tstate}
-            x = x + hm
+            x = x + L.as_batch(hm)
             hn = L.rms_norm(x, p["norm2"], cfg.rms_eps)
             if kind == "rwkv6":
                 hf, nc["channel"] = S.rwkv6_channel_mix(hn, p["ffn"],
@@ -569,7 +738,7 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict,
                 hf = _moe(cfg, p["ffn"], hn)
             else:
                 hf = L.mlp(hn, p["ffn"], cfg.activation)
-            x = x + hf
+            x = x + L.as_batch(hf)
             nc_sb[f"s{i}"] = nc
         caches.append(nc_sb)
     return _unembed(cfg, params, x), _stack(caches)

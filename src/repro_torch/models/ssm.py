@@ -27,6 +27,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import layers as L
 from repro_torch.models.layers import einsum
 
 F32 = torch.float32
@@ -54,7 +55,8 @@ def _causal_conv1d(x: torch.Tensor, w: torch.Tensor,
                    b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv. x (B, T, Di), w (Di, K), b (Di,)."""
     K, T = w.shape[1], x.shape[1]
-    pads = F.pad(x, (0, 0, K - 1, 0))
+    # along the sequence, which no layout shards (see model.prefill)
+    pads = L.same_local(lambda t: F.pad(t, (0, 0, K - 1, 0)), x)
     out = torch.zeros(x.shape, dtype=F32, device=x.device)
     for j in range(K):                       # K is tiny (4): unrolled taps
         out = out + pads[:, j:j + T].to(F32) * w[:, j].to(F32)
@@ -92,6 +94,46 @@ def _associative_scan(elems: tuple) -> tuple:
     return tuple(out)
 
 
+def _selective_scan(a: torch.Tensor, bx: torch.Tensor,
+                    chunk: int) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + bx_t over (B, T, Di, S) from h_{-1} = 0:
+    chunks of the associative scan, the state carried across them."""
+    B, T = a.shape[:2]
+    n_chunks, ck = _chunks_of(T, chunk)
+    h0 = torch.zeros((B,) + tuple(a.shape[2:]), dtype=F32, device=a.device)
+    hs = []
+    for c in range(n_chunks):
+        # within-chunk associative scan; fold in the carried state
+        aa, hh = _associative_scan((a[:, c * ck:(c + 1) * ck],
+                                    bx[:, c * ck:(c + 1) * ck]))
+        hh = hh + aa * h0[:, None]
+        h0 = hh[:, -1]
+        hs.append(hh)
+    return torch.cat(hs, dim=1)                              # (B,T,Di,S)
+
+
+def _selective_scan_chunks_together(a: torch.Tensor, bx: torch.Tensor,
+                                    chunk: int) -> torch.Tensor:
+    """:func:`_selective_scan` with every chunk's associative scan run at
+    once (a chunk axis folded into the batch) and only the carried state
+    stepped chunk by chunk: each element sees the same operations in
+    the same order, so the values are bitwise the loop's."""
+    B, T = a.shape[:2]
+    n_chunks, ck = _chunks_of(T, chunk)
+    rest = tuple(a.shape[2:])
+    aa, hh = _associative_scan((a.reshape(B * n_chunks, ck, *rest),
+                                bx.reshape(B * n_chunks, ck, *rest)))
+    aa = aa.reshape(B, n_chunks, ck, *rest)
+    hh = hh.reshape(B, n_chunks, ck, *rest)
+    h0 = torch.zeros((B,) + rest, dtype=F32, device=a.device)
+    carry = []
+    for c in range(n_chunks):
+        carry.append(h0)
+        h0 = hh[:, c, -1] + aa[:, c, -1] * h0
+    h = hh + aa * torch.stack(carry, dim=1)[:, :, None]
+    return h.reshape(B, T, *rest)
+
+
 def mamba_train(x: torch.Tensor, p: dict, *, d_state: int,
                 chunk: int = 256, return_state: bool = False):
     """Mamba mixer over a full sequence.
@@ -115,17 +157,16 @@ def mamba_train(x: torch.Tensor, p: dict, *, d_state: int,
     a = torch.exp(dt[..., None] * A)                        # (B,T,Di,S)
     bx = (dt * x1.to(F32))[..., None] * B_ssm[:, :, None, :]
 
-    n_chunks, ck = _chunks_of(T, chunk)
-    h0 = torch.zeros((B, a.shape[2], d_state), dtype=F32, device=x.device)
-    hs = []
-    for c in range(n_chunks):
-        # within-chunk associative scan; fold in the carried state
-        aa, hh = _associative_scan((a[:, c * ck:(c + 1) * ck],
-                                    bx[:, c * ck:(c + 1) * ck]))
-        hh = hh + aa * h0[:, None]
-        h0 = hh[:, -1]
-        hs.append(hh)
-    h = torch.cat(hs, dim=1)                                 # (B,T,Di,S)
+    if L.is_dtensor(a):
+        # Independent per (batch, channel, state): shard by shard, the
+        # chunks scanned together (bitwise the loop's values, with a
+        # few hundred ops in place of ~600 a chunk).
+        h = L.same_local(
+            lambda a, bx: _selective_scan_chunks_together(a, bx, chunk),
+            a, bx)
+    else:
+        h = _selective_scan(a, bx, chunk)
+    h0 = h[:, -1]                                            # (B,Di,S)
     y = einsum("btis,bts->bti", h, C_ssm, F32)
     y = y + p["D"].to(F32) * x1.to(F32)
     y = (y * F.silu(z.to(F32))).to(x.dtype)
@@ -133,7 +174,8 @@ def mamba_train(x: torch.Tensor, p: dict, *, d_state: int,
     if return_state:
         K = p["conv_w"].shape[1]
         tail = (x1_raw[:, T - (K - 1):] if T >= K - 1
-                else F.pad(x1_raw, (0, 0, K - 1 - T, 0)))
+                else L.same_local(
+                    lambda t: F.pad(t, (0, 0, K - 1 - T, 0)), x1_raw))
         return out, {"conv": tail, "ssm": h0}
     return out
 
@@ -227,19 +269,41 @@ def rwkv6_time_mix(x: torch.Tensor, p: dict, *, head_dim: int,
     # (the chunked form divides by within-chunk decay).
     logw = -torch.exp(torch.clamp(lw, -8.0, 1.0))           # log decay < 0
 
+    # The recurrence is independent per (batch, head): DTensors run it
+    # shard by shard, batch-sharded, heads whole (40 heads of rwkv6-3b
+    # do not divide a 16-wide 'model' axis).
+    o, S = L.batch_local(
+        lambda r, k, v, logw, S, u: _wkv(r, k, v, logw, S, u, head_dim,
+                                         chunk),
+        [r, k, v, logw, state["wkv"] if state is not None else None],
+        [p["u"]])
+    o = o * p["ln_scale"].to(F32)
+    o = (o * g).to(x.dtype)
+    out = einsum("btd,de->bte", o, p["wo"], F32).to(x.dtype)
+    if return_state:
+        return out, {"shift": x[:, -1:], "wkv": S}
+    return out
+
+
+def _wkv(r, k, v, logw, S, u, head_dim: int, chunk: int):
+    """The chunked WKV recurrence of (B, T, D) r, k, v and log decays
+    from the state S (B, H, dk, dv; zeros when None), with the bonus u
+    (H, dk), then the per-head group norm: (o (B, T, D), S at the end)."""
+    B, T, D = r.shape
+    H = D // head_dim
     r = r.reshape(B, T, H, head_dim)
     k = k.reshape(B, T, H, head_dim)
     v = v.reshape(B, T, H, head_dim)
     logw = logw.reshape(B, T, H, head_dim)
-    u = p["u"].to(F32)                                       # (H, dk)
+    u = u.to(F32)                                            # (H, dk)
 
     n_chunks, ck = _chunks_of(T, chunk)
-    ti = torch.arange(ck, device=x.device)[:, None]
-    si = torch.arange(ck, device=x.device)[None, :]
+    ti = torch.arange(ck, device=r.device)[:, None]
+    si = torch.arange(ck, device=r.device)[None, :]
     below = si < ti
-    S = (state["wkv"] if state is not None
-         else torch.zeros((B, H, head_dim, head_dim), dtype=F32,
-                          device=x.device))
+    if S is None:
+        S = torch.zeros((B, H, head_dim, head_dim), dtype=F32,
+                        device=r.device)
     os_ = []
     for c in range(n_chunks):
         sl = slice(c * ck, (c + 1) * ck)
@@ -271,12 +335,7 @@ def rwkv6_time_mix(x: torch.Tensor, p: dict, *, head_dim: int,
     mean = torch.mean(o, dim=-1, keepdim=True)
     var = torch.var(o, dim=-1, keepdim=True, correction=0)
     o = (o - mean) * torch.rsqrt(var + 64e-5)
-    o = o.reshape(B, T, D) * p["ln_scale"].to(F32)
-    o = (o * g).to(x.dtype)
-    out = einsum("btd,de->bte", o, p["wo"], F32).to(x.dtype)
-    if return_state:
-        return out, {"shift": x[:, -1:], "wkv": S}
-    return out
+    return o.reshape(B, T, D), S
 
 
 def rwkv6_time_mix_decode(x: torch.Tensor, state: dict, p: dict, *,

@@ -19,7 +19,13 @@ Fault-tolerance contract:
   * saves run on a background thread (training continues) from a host
     copy taken before the save is queued;
   * restore places the leaves on any device (``device=``), which is
-    what the trainer's ``remesh`` uses.
+    what the trainer's ``remesh`` uses;
+  * a DTensor leaf (a trainer on a device mesh) is saved whole
+    (``full_tensor()``, a collective every rank of its mesh joins) and
+    written by rank 0 alone, so a checkpoint written on a mesh restores
+    onto a device and the other way round; ``restore`` places leaves by
+    the trainer's shardings as it reads them.  Both go one leaf at a
+    time.
 """
 
 from __future__ import annotations
@@ -35,6 +41,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.distribution.sharding import distribute
+from repro_torch.models.layers import is_dtensor
 from repro_torch.models.model import tree_map
 from repro_torch.train.optimizer import tree_leaves, tree_unflatten
 
@@ -56,6 +64,19 @@ def _load_leaf(path: str, dtype_str: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def _whole(t):
+    """A DTensor gathered whole (every rank of its mesh calls this);
+    anything else as it is."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def _writer() -> bool:
+    """Only rank 0 writes when a process group is up."""
+    import torch.distributed as dist
+    return not (dist.is_available() and dist.is_initialized()
+                and dist.get_rank() != 0)
+
+
 def _treedef(tree) -> str:
     """The tree's structure with ``*`` for each leaf, keys sorted."""
     if isinstance(tree, dict):
@@ -65,20 +86,27 @@ def _treedef(tree) -> str:
 
 
 def save(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3) -> str:
-    """Synchronous save with atomic commit."""
+    """Synchronous save with atomic commit.  Rank 0 writes; every rank
+    joins the gathers of DTensor leaves, one leaf at a time, so that one
+    whole leaf at most is alive beside the shards."""
     leaves = tree_leaves(tree)
     tag = f"step_{step:09d}"
     tmp = os.path.join(ckpt_dir, tag + ".tmp")
     final = os.path.join(ckpt_dir, tag)
+    if not _writer():
+        for x in leaves:
+            _whole(x)
+        return final
     os.makedirs(tmp, exist_ok=True)
     manifest = {"step": step, "n_leaves": len(leaves),
                 "treedef": _treedef(tree),
                 "leaves": []}
-    for i, leaf in enumerate(leaves):
-        arr, dtype = _to_numpy(torch.as_tensor(leaf))
+    for i, x in enumerate(leaves):
+        arr, dtype = _to_numpy(torch.as_tensor(_whole(x)))
         np.save(os.path.join(tmp, f"leaf_{i:05d}.npy"), arr)
         manifest["leaves"].append(
             {"shape": list(arr.shape), "dtype": dtype})
+        del arr
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
     if os.path.exists(final):
@@ -113,35 +141,45 @@ def list_steps(ckpt_dir: str) -> list[int]:
 
 
 def restore(ckpt_dir: str, step: int, template: Any,
-            device: Optional[Any] = None) -> Any:
+            device: Optional[Any] = None, shardings: Any = None) -> Any:
     """Restore a step into the template's tree structure (any leaves:
     tensors, meta tensors or arrays), as tensors on ``device`` (default:
-    the host)."""
+    the host).  ``shardings`` (a tree of ``NamedSharding`` like the
+    template's) places each leaf on its mesh as it is read, so that one
+    whole leaf at most is alive beside the shards."""
     tag = os.path.join(ckpt_dir, f"step_{step:09d}")
     with open(os.path.join(tag, "manifest.json")) as f:
         manifest = json.load(f)
-    leaves = [_load_leaf(os.path.join(tag, f"leaf_{i:05d}.npy"),
-                         manifest["leaves"][i]["dtype"])
-              for i in range(manifest["n_leaves"])]
-    if device is not None:
-        leaves = [x.to(device) for x in leaves]
+    n = manifest["n_leaves"]
+    shs = [None] * n if shardings is None else tree_leaves(shardings)
+    leaves = []
+    for i in range(n):
+        x = _load_leaf(os.path.join(tag, f"leaf_{i:05d}.npy"),
+                       manifest["leaves"][i]["dtype"])
+        if device is not None:
+            x = x.to(device)
+        leaves.append(x if shs[i] is None else distribute(x, shs[i]))
     return tree_unflatten(template, leaves)
 
 
 def restore_latest(ckpt_dir: str, template: Any,
-                   device: Optional[Any] = None
+                   device: Optional[Any] = None, shardings: Any = None
                    ) -> tuple[Optional[Any], int]:
     steps = list_steps(ckpt_dir)
     if not steps:
         return None, -1
     step = steps[-1]
-    return restore(ckpt_dir, step, template, device), step
+    return restore(ckpt_dir, step, template, device, shardings), step
 
 
-def _host_copy(x) -> torch.Tensor:
+def _host_copy(x) -> Optional[torch.Tensor]:
     """A host copy that later in-place updates of ``x`` cannot reach
-    (on the CPU, ``.cpu()`` and ``.numpy()`` would share its memory)."""
-    return torch.as_tensor(x).detach().to("cpu", copy=True)
+    (on the CPU, ``.cpu()`` and ``.numpy()`` would share its memory);
+    None on a rank that does not write, once it has joined the gather."""
+    whole = _whole(x)
+    if not _writer():
+        return None
+    return torch.as_tensor(whole).detach().to("cpu", copy=True)
 
 
 class AsyncCheckpointer:

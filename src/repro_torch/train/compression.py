@@ -13,10 +13,12 @@ come from an explicit ``torch.Generator``.
 :func:`compressed_psum_leaf` is the reference's per-leaf arithmetic over
 the pods' leaves stacked on a leading axis: its ``psum`` over ``'pod'``
 is a sum over that axis, and every pod rounds with the same draws, as
-every pod of the reference's ``shard_map`` holds the same key.  The
-reference's ``make_compressed_allreduce`` (a ``shard_map`` over a
-device mesh's ``'pod'`` axis) is not ported: it waits with the mesh
-tools.
+every pod of the reference's ``shard_map`` holds the same key.
+:func:`make_compressed_allreduce` is the same arithmetic over a device
+mesh's ``'pod'`` dim, each rank holding its pod's leaves, with
+functional collectives: the int8 payload summed in int32, the scales
+gathered and summed in pod order (so the result is bitwise the stacked
+version's).
 """
 
 from __future__ import annotations
@@ -96,3 +98,37 @@ def compressed_psum_leaf(gs: torch.Tensor, generator: torch.Generator,
     for s in shape:
         m *= s
     return flat[:m].reshape(shape).to(gs.dtype)
+
+
+def _psum_leaf_over(g: torch.Tensor, generator: torch.Generator, group,
+                    qblock: int = QBLOCK) -> torch.Tensor:
+    """:func:`compressed_psum_leaf` of the group's leaves, each rank
+    holding its own ``g``: the same draws on every rank (a generator
+    seeded alike), the int32 payload all-reduced, the f32 scales
+    gathered and summed in rank order as the stacked sum adds them."""
+    from repro_torch.distribution.collectives import all_gather, all_reduce
+    n = group.size()
+    blocks = _blocks(g.reshape(-1), qblock)
+    q, scale = _quantize_blocks(blocks, _draws(blocks, generator))
+    qsum = all_reduce(q.to(torch.int32), "sum", group)
+    ssum = all_gather(scale, group).sum(0)
+    mean_scale = ssum / n
+    deq = qsum.to(F32) * mean_scale[:, None] / n
+    flat = deq.reshape(-1)
+    return flat[:g.numel()].reshape(g.shape).to(g.dtype)
+
+
+def make_compressed_allreduce(mesh, axis: str = "pod"):
+    """(tree, generator) -> tree with leaves mean-reduced over the
+    ``axis`` dim of the ``DeviceMesh`` ``mesh`` (the rank's pod group)
+    in the int8 wire format.  Every rank passes a generator seeded
+    alike; leaves draw from it in the tree's leaf order (dict keys
+    sorted)."""
+    from repro_torch.train.optimizer import tree_leaves, tree_unflatten
+    group = mesh.get_group(axis)
+
+    def fn(tree, generator: torch.Generator):
+        out = [_psum_leaf_over(leaf, generator, group)
+               for leaf in tree_leaves(tree)]
+        return tree_unflatten(tree, out)
+    return fn

@@ -26,6 +26,7 @@ from typing import Any, Literal, Optional
 
 import torch
 
+from repro_torch.models.layers import is_dtensor
 from repro_torch.models.model import tree_map
 
 F32 = torch.float32
@@ -190,8 +191,40 @@ def init_opt_state(params, cfg: OptimizerConfig) -> dict:
     return state
 
 
+def _whole_rows(x, qblock: int):
+    """A DTensor whose last dim is sharded across the row blocks of
+    :func:`quantize_rowwise` (blocks that straddle two shards) with that
+    dim gathered, so that each shard holds whole blocks: a gather that a
+    partitioner placing blocks by shard would not need.  Anything else
+    as it is."""
+    if not is_dtensor(x) or x.ndim == 0:
+        return x
+    from torch.distributed.tensor import Replicate
+    last = x.shape[-1]
+    nblk = last // _row_block(last, qblock)
+    pl = list(x.placements)
+    cut = [i for i, p in enumerate(pl)
+           if p.is_shard() and p.dim in (-1, x.ndim - 1)]
+    n = 1
+    for i in cut:
+        n *= x.device_mesh.shape[i]
+    if not cut or nblk % n == 0:
+        return x
+    for i in cut:
+        pl[i] = Replicate()
+    return x.redistribute(x.device_mesh, pl)
+
+
 def _read_moment(mom, shape, cfg: OptimizerConfig) -> torch.Tensor:
     if cfg.state_dtype == "int8":
+        if is_dtensor(mom["q"]):
+            q = _whole_rows(mom["q"], cfg.qblock)
+            scale = (mom["scale"] if q is mom["q"] else _whole_rows(
+                mom["scale"].redistribute(q.device_mesh, q.placements),
+                cfg.qblock))
+            out = dequantize_rowwise({"q": q, "scale": scale}, shape,
+                                     cfg.qblock)
+            return out.redistribute(out.device_mesh, mom["q"].placements)
         return dequantize_rowwise(mom, shape, cfg.qblock)
     return mom.to(F32)
 
@@ -199,7 +232,7 @@ def _read_moment(mom, shape, cfg: OptimizerConfig) -> torch.Tensor:
 def _write_moment(dst, val: torch.Tensor, cfg: OptimizerConfig) -> None:
     """Store ``val`` into the moment ``dst`` in place."""
     if cfg.state_dtype == "int8":
-        qs = quantize_rowwise(val, cfg.qblock)
+        qs = quantize_rowwise(_whole_rows(val, cfg.qblock), cfg.qblock)
         dst["q"].copy_(qs["q"])
         dst["scale"].copy_(qs["scale"])
     else:
@@ -210,7 +243,7 @@ def _chunks(p: torch.Tensor) -> list:
     """Index slices of ``p``'s first axis of at most UPDATE_CHUNK
     elements each (``...``, the whole tensor, when it is small or has
     fewer than two axes)."""
-    if p.ndim < 2 or p.numel() <= UPDATE_CHUNK:
+    if p.ndim < 2 or p.numel() <= UPDATE_CHUNK or is_dtensor(p):
         return [...]
     rows = max(1, UPDATE_CHUNK // (p.numel() // p.shape[0]))
     return [slice(i, i + rows) for i in range(0, p.shape[0], rows)]
@@ -224,12 +257,36 @@ def _sub(mom, sl):
 
 # -- update -----------------------------------------------------------------
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, groups: Optional[list] = None) -> torch.Tensor:
     """sqrt of the sum of squares, the leaves summed in JAX's order (each
     leaf's squares in the slices of :func:`_chunks`, so a bf16 leaf's f32
-    copy is never made whole)."""
-    return torch.sqrt(sum(torch.sum(torch.square(x[sl].to(F32)))
-                          for x in tree_leaves(tree) for sl in _chunks(x)))
+    copy is never made whole).  With ``groups`` (per leaf, the process
+    groups over which its shards split it) the leaves are local shards
+    and each leaf's sum is reduced over its groups first."""
+    if groups is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x[sl].to(F32)))
+                              for x in tree_leaves(tree)
+                              for sl in _chunks(x)))
+    from repro_torch.distribution.collectives import all_reduce
+    total = 0
+    for x, gs in zip(tree_leaves(tree), groups):
+        s = sum(torch.sum(torch.square(x[sl].to(F32))) for sl in _chunks(x))
+        for g in gs:
+            s = all_reduce(s, "sum", g)
+        total = total + s
+    return torch.sqrt(total)
+
+
+def _shard_groups(x) -> list:
+    """The process groups of the mesh dims (of more than one rank) that
+    shard the DTensor ``x``."""
+    mesh = x.device_mesh
+    return [mesh.get_group(i) for i, p in enumerate(x.placements)
+            if p.is_shard() and mesh.shape[i] > 1]
+
+
+def _local(tree):
+    return tree_map(lambda t: t.to_local() if is_dtensor(t) else t, tree)
 
 
 @torch.no_grad()
@@ -241,11 +298,33 @@ def apply_updates(params, grads, opt_state, cfg: OptimizerConfig,
 
     Moment trees may have quant-dict leaves (int8 mode), so they are
     flattened only down to the params' structure.  ``lr`` may be a
-    number or a 0-d tensor (a schedule's value)."""
+    number or a 0-d tensor (a schedule's value).
+
+    DTensor leaves (a device mesh): each gradient is first placed as its
+    parameter (the gradient reduction).  With f32/bf16 moments, which
+    shard as their parameters, the update then runs on the local shards
+    (it is elementwise) and the global norm adds each leaf's local sum
+    reduced over its shards; int8 moments, whose scales may shard
+    otherwise, update as DTensors."""
+    leaves_p = tree_leaves(params)
+    if is_dtensor(leaves_p[0]):
+        grads = tree_unflatten(params, [
+            g.redistribute(p.device_mesh, p.placements)
+            for p, g in zip(leaves_p, _flatten_up_to(params, grads))])
+        if cfg.state_dtype != "int8":
+            groups = [_shard_groups(p) for p in leaves_p]
+            _, _, metrics = _apply(_local(params), _local(grads),
+                                   _local(opt_state), cfg, lr, groups)
+            return params, opt_state, metrics
+    return _apply(params, grads, opt_state, cfg, lr)
+
+
+def _apply(params, grads, opt_state, cfg: OptimizerConfig, lr,
+           groups: Optional[list] = None):
     lr = cfg.lr if lr is None else lr
     opt_state["count"].add_(1)
     count = opt_state["count"]
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, groups)
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
 
     leaves_p = tree_leaves(params)

@@ -1,21 +1,30 @@
-"""Fault-tolerant trainer on one device.
+"""Fault-tolerant, elastic trainer, on one device or a device mesh.
 
 Port of ``repro/train/trainer.py``.  The loop:
   * a train step (forward, backward, AdamW update in place) on the
-    trainer's device;
+    trainer's device, or on a ``DeviceMesh`` with parameters, moments
+    and batches as DTensors placed by the ``distribution.sharding``
+    rules (FSDP over 'data', TP over 'model', DP over 'pod');
   * self-scheduled shard ingestion (:mod:`repro_torch.data`) feeds
-    fixed-shape batches;
-  * async checkpoints every ``ckpt_every`` steps, auto-resume;
-  * re-mesh: commit a sync checkpoint, rebuild, restore onto the given
-    device and continue — the one-card collapse of the reference's
-    survivor re-mesh (its multi-device mesh and shardings wait with the
-    mesh tools);
+    fixed-shape batches (every rank of a mesh feeds the same global
+    batch, which is then sharded);
+  * async checkpoints every ``ckpt_every`` steps, auto-resume; a
+    checkpoint holds whole tensors, so it restores onto a device or any
+    mesh.  On a mesh, parameters are drawn, restored, placed and saved
+    one leaf at a time: one whole leaf (or one sublayer's draw) at most
+    is on a device beside the shards; the async save's host copy holds
+    the whole tree on rank 0's host alone;
+  * elastic re-mesh: commit a sync checkpoint, rebuild on the survivors'
+    mesh (or device), restore, re-shard and continue — the training-loop
+    analogue of the paper's manager re-queueing a dead worker's tasks; a
+    rank outside the new mesh drops out (its ``run`` does nothing);
   * straggler watchdog: per-step wall time EWMA; steps slower than
     ``straggler_factor`` x EWMA are counted and reported.
 
-Where the reference takes a ``Mesh`` the port takes ``device=`` (default:
-the card; it raises without one unless told ``"cpu"``).  The
-reference's parameters come from ``jax.random.key(seed)`` and the port's
+``mesh=None`` trains on ``device`` (default: the card; it raises
+without one unless told ``"cpu"``); a mesh must hold rank 0, which
+writes the checkpoints.  The reference's parameters come from
+``jax.random.key(seed)`` and the port's
 from a ``torch.Generator`` seeded alike, so a fresh run starts from
 other values; a run resumed from a checkpoint of either package
 continues from the same ones.
@@ -30,12 +39,18 @@ from typing import Iterator, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import zeros as dtensor_zeros
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.launch import steps as step_lib
 from repro_torch.models import model as M
+from repro_torch.models.layers import is_dtensor
 from repro_torch.train import checkpoint as ckpt_lib
+from repro_torch.distribution.sharding import (
+    batch_shardings, distribute, opt_state_shardings, param_shardings,
+    tree_map_shardings)
+from repro_torch.launch.mesh import mesh_context
 from repro_torch.train.optimizer import (
     OptimizerConfig, apply_updates, init_opt_state)
 from repro_torch.train.schedules import get_schedule
@@ -57,11 +72,12 @@ class TrainerConfig:
 
 class Trainer:
     def __init__(self, cfg: ArchConfig, opt_cfg: OptimizerConfig,
-                 tcfg: TrainerConfig, device=None, seed: int = 0):
+                 tcfg: TrainerConfig, mesh=None, device=None,
+                 seed: int = 0):
         self.cfg = cfg
         self.opt_cfg = opt_cfg
         self.tcfg = tcfg
-        self.device = ops.resolve_device(device)
+        self._set_mesh(mesh, device)
         self.seed = seed
         self.step = 0
         self.metrics_log: list[dict] = []
@@ -79,23 +95,54 @@ class Trainer:
 
     # -- construction / restore -------------------------------------------
 
+    def _set_mesh(self, mesh, device) -> None:
+        """The mesh (or None) and the device this rank computes on."""
+        self.mesh = mesh
+        if mesh is None:
+            self.device = ops.resolve_device(device)
+            self.active = True
+            return
+        self.device = (torch.device("cuda", torch.cuda.current_device())
+                       if mesh.device_type == "cuda" else
+                       torch.device(mesh.device_type))
+        # A rank outside the mesh (a worker lost to a re-mesh) drops out.
+        self.active = mesh.get_coordinate() is not None
+
     def _build(self, restore: bool) -> None:
         cfg = self.cfg
+        pspecs = step_lib.param_specs(cfg)
+        ospecs = step_lib.opt_state_specs(cfg, self.opt_cfg)
+        if self.mesh is not None:
+            self.psh = param_shardings(pspecs, self.mesh)
+            self.osh = opt_state_shardings(ospecs, pspecs, self.psh,
+                                           self.mesh)
+        # With a mesh every leaf is placed as it is drawn or read: one
+        # whole leaf at most is on the device beside the shards.
+        shardings = (None if self.mesh is None
+                     else {"params": self.psh, "opt": self.osh})
         restored = None
         if restore:
-            template = {"params": step_lib.param_specs(cfg),
-                        "opt": step_lib.opt_state_specs(cfg, self.opt_cfg)}
+            template = {"params": pspecs, "opt": ospecs}
             restored, step = ckpt_lib.restore_latest(
-                self.ckpt_dir, template, self.device)
+                self.ckpt_dir, template, self.device, shardings)
             if restored is not None:
                 self.step = step + 1
         if restored is not None:
             self.params = restored["params"]
             self.opt_state = restored["opt"]
-        else:
+        elif self.mesh is None:
             gen = torch.Generator(device=self.device).manual_seed(self.seed)
             self.params = M.init_params(cfg, gen, self.device)
             self.opt_state = init_opt_state(self.params, self.opt_cfg)
+        else:
+            gen = torch.Generator(device=self.device).manual_seed(self.seed)
+            self.params = M.init_params(cfg, gen, self.device, self.psh)
+            # init_opt_state's zero moments and count, shard by shard
+            self.opt_state = tree_map_shardings(
+                lambda spec, sh: dtensor_zeros(
+                    tuple(spec.shape), dtype=spec.dtype,
+                    device_mesh=sh.mesh, placements=sh.placements),
+                ospecs, self.osh)
 
         def train_step(params, opt_state, batch, step):
             lr = self.schedule(step)
@@ -110,15 +157,27 @@ class Trainer:
 
     # -- re-mesh -----------------------------------------------------------
 
-    def remesh(self, device) -> None:
-        """Sync-commit, rebuild and restore onto ``device``, continue."""
+    def remesh(self, target) -> None:
+        """Survivor re-mesh: sync-commit, rebuild on ``target`` (a
+        ``DeviceMesh``, or a device for one device), restore, re-shard,
+        continue.  Every rank of the old mesh calls it; a rank outside
+        the new mesh drops out."""
+        from torch.distributed.device_mesh import DeviceMesh
         self.async_ckpt.wait()
         ckpt_lib.save(self.ckpt_dir, self.step,
                       {"params": self.params, "opt": self.opt_state},
                       keep=self.tcfg.keep_ckpts)
+        if self.mesh is not None:
+            _mesh_barrier(self.mesh)         # rank 0's commit is on disk
         self.step += 1           # restored checkpoint resumes after itself
-        self.device = ops.resolve_device(device)
-        self._build(restore=True)
+        if isinstance(target, DeviceMesh):
+            self._set_mesh(target, None)
+        else:
+            self._set_mesh(None, target)
+        if self.active:
+            self._build(restore=True)
+        else:
+            self.params = self.opt_state = None
 
     # -- loop ------------------------------------------------------------------
 
@@ -129,14 +188,25 @@ class Trainer:
         the loss and grad norm come back together."""
         n_steps = n_steps or self.tcfg.total_steps
         target = self.step + n_steps
+        if not self.active:
+            return self.metrics_log
         for batch in batches:
             if self.step >= target:
                 break
             dev_batch = {k: torch.as_tensor(v).to(self.device)
                          for k, v in batch.items()}
             t0 = time.monotonic()
-            self.params, self.opt_state, metrics = self._step_fn(
-                self.params, self.opt_state, dev_batch, self.step)
+            if self.mesh is None:
+                self.params, self.opt_state, metrics = self._step_fn(
+                    self.params, self.opt_state, dev_batch, self.step)
+            else:
+                dev_batch = tree_map_shardings(
+                    distribute, dev_batch,
+                    batch_shardings(self.mesh, dev_batch))
+                with mesh_context(self.mesh):
+                    self.params, self.opt_state, metrics = self._step_fn(
+                        self.params, self.opt_state, dev_batch, self.step)
+                metrics = {k: _whole(v) for k, v in metrics.items()}
             loss, gnorm = torch.stack(
                 [metrics["loss"].float(), metrics["grad_norm"]]).tolist()
             dt = time.monotonic() - t0
@@ -164,3 +234,15 @@ class Trainer:
 
     def close(self) -> None:
         self.async_ckpt.close()
+
+
+def _mesh_barrier(mesh) -> None:
+    """Return once every rank of ``mesh`` has entered: an all-reduce
+    over each mesh dim in turn carries every rank's arrival to all."""
+    t = torch.ones(1, device=mesh.device_type)
+    for i in range(mesh.ndim):
+        torch.distributed.all_reduce(t, group=mesh.get_group(i))
+
+
+def _whole(x):
+    return x.full_tensor() if is_dtensor(x) else x
