@@ -8,14 +8,15 @@ and the CUDA toolkit:
 
 Phases, each printed as it runs:
 
-1. build   — compile ``src/repro_torch/kernels/csrc/*.cu`` (seven
+1. build   — compile ``src/repro_torch/kernels/csrc/*.cu`` (eight
              sources: the five kernels, flash attention having a
-             CUDA-core and a tensor-core source, and an empty kernel
-             that times the launch floor; one nvcc each, all started
-             together) for sm_90a; print the build time,
-             ptxas' registers and shared memory per kernel, the count of
-             HGMMA (wgmma) instructions in the tensor-core flash
-             kernel's SASS (``cuobjdump -sass``; 0 fails), the SASS
+             CUDA-core source and two tensor-core ones, bf16 and f32,
+             and an empty kernel that times the launch floor; one nvcc
+             each, all started together) for sm_90a; print the build
+             time, ptxas' registers and shared memory per kernel, the
+             count of tensor-core instructions (HGMMA for wgmma, HMMA
+             for mma.sync) in each tensor-core flash kernel's SASS
+             (``cuobjdump -sass``; a kernel without HGMMA fails), the SASS
              instructions per pair-sample in the inner loop of each
              encounter-screen kernel (its design floor's count), and the
              card's name and power limit.
@@ -86,18 +87,24 @@ Phases, each printed as it runs:
              the six shapes of tests/test_flash_attention.py in f32
              (rtol/atol 2e-5), its bf16 case, stablelm-12b's heads (B =
              1, H = 32, KV = 8, hd = 160, T = S in {512, 2048, 4096}) in
-             bf16 and f32, phase 7's own shape (B = 2, T = S = 2048,
-             bf16) and phase 7b's forwards' shapes in bf16 (qwen3-moe
-             B = 1, H = 32, KV = 4, hd = 128; jamba KV = 8, hd = 128;
-             musicgen B = 2, H = KV = 24, hd = 64; T = S = 2048); a bf16
-             output within one bf16 rounding of the plain
+             bf16 and f32, phase 7's own shape (B = 2, T = S = 2048)
+             in bf16 and f32, and phase 7b's forwards' shapes in bf16
+             (qwen3-moe B = 1, H = 32, KV = 4, hd = 128; jamba KV = 8,
+             hd = 128; musicgen B = 2, H = KV = 24, hd = 64; T = S =
+             2048); a bf16 output within one bf16 rounding of the plain
              f32 one (rtol 2^-8, atol 1e-5).  Every bf16 shape must go
-             through the tensor-core kernel (route "sm90") and every f32
-             one through the CUDA-core kernel (route counters); each is
-             timed beside the plain version and, at T = S,
-             F.scaled_dot_product_attention (the yardstick only), and a
-             bf16 shape also beside the CUDA-core kernel's bf16 entry,
-             called directly on the same inputs.
+             through the bf16 tensor-core kernel (route "sm90") and every
+             f32 one through the split-TF32 one ("sm90_f32"; route
+             counters); each is timed beside the plain version, the
+             CUDA-core kernel's entry of its dtype (called directly on
+             the same inputs and held to the same gate) and, at T = S,
+             F.scaled_dot_product_attention (the yardstick only; in f32
+             its memory-efficient kernel, which runs f32 on the tensor
+             cores, on k and v repeated to H heads outside the timing),
+             with its share of outputs outside the gate, the bound (f32:
+             the split-TF32 products at the TF32 rate, with the
+             CUDA-core rate's figure beside it) and the bf16 kernel's
+             design floor printed.
 7. lm      — stablelm-12b at full width and depth (40 layers, 12.1 B
              parameters in bf16, random from a seed) on the card: forward
              on 2 x 2048 tokens with attention_impl "flash" (the flash
@@ -108,6 +115,15 @@ Phases, each printed as it runs:
              forward; BatchedServer (4 slots, prompt 64, cache 256): one
              warm-up request, then 3 rounds of 8 seeded requests of 16
              new tokens each, every round gated and timed on its own.
+7a. lm-f32 — stablelm-12b with f32 parameters and activations, not cut
+             (40 layers, 12.1 B parameters, 48.6 GB, random from a
+             seed), on phase 7's tokens: forward with "flash" (the
+             counters zeroed just before and read just after: 40
+             launches, all on the sm90_f32 route) and "xla", logits
+             within 1e-3 of max|xla|; the same flash forward with f32
+             sent to the CUDA-core kernel (40 launches there, the same
+             gate); tokens/s and peak memory of each; each flash forward
+             profiled once (device time: f32 GEMMs, flash, the rest).
 7b. arms   — the LM's other arms at full width, random bf16 weights from
              a seed, one model at a time (the previous one freed):
              qwen3-moe-30b-a3b (48 MoE layers, 128 experts, top 8; 61.1
@@ -231,6 +247,7 @@ non-zero before that line is printed.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -310,6 +327,7 @@ FLASH_F32_TOL = 2e-5             # rtol and atol, tests/test_flash_attention.py
 # whose outputs stay below 4, this is tighter than its max error 0.05.
 FLASH_BF16_RTOL, FLASH_BF16_ATOL = 2.0 ** -8, 1e-5
 BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core rate
+TF32_OPS_PER_S = 495e12          # H100 SXM dense TF32 tensor-core rate
 # Phase 7: stablelm-12b at full width and depth.
 LM_ARCH = "stablelm-12b"
 LM_B, LM_T = 2, 2048
@@ -317,6 +335,15 @@ LM_B, LM_T = 2, 2048
 FLASH_MAIN_PATH_SHAPE = (LM_B, 32, 8, LM_T, LM_T, 160, True)
 LM_REL_GATE = 0.03               # flash vs xla logits, tests/test_flash_attention.py
 LM_DECODE_T, LM_DECODE_GATE = 64, 0.05   # tests/test_models.py's gate
+# Phase 7a: stablelm-12b in f32 (parameters and activations), flash vs
+# xla logits.  Both forwards run every product in f32 (TF32 off) and
+# differ only in attention: the flash kernels hold each output element
+# within 2e-5 of the plain version (phase 6), and 40 layers of f32
+# rounding in two summation orders pass through the residual stream;
+# 1e-3 of max|xla| sits some 30x under the bf16 gate (0.03) and far
+# above f32 noise, while a wrong tile, mask or rescale moves the logits
+# by more than that.
+LM_F32_REL_GATE = 1e-3
 SERVE = dict(slots=4, prompt_len=64, cache_len=256)
 SERVE_REQUESTS, SERVE_NEW, SERVE_ROUNDS = 8, 16, 3
 # Phase 7b: the LM's other arms at full width, one model at a time: MoE
@@ -544,14 +571,23 @@ def phase_build() -> tuple[str, dict]:
     for source, name, text in found:
         say("build", f"{source} {names.get(name, name)}: ptxas{text}")
     n = len(_build._sources())
-    if n != 7 or "flash_attention_sm90.cu" not in log:
-        raise AssertionError(f"expected seven kernel sources, built {n}")
-    hgmma = hgmma_count(_build.library_path())
-    say("build", f"flash_attention_sm90.cu: {hgmma} HGMMA instructions in "
-                 f"its kernels' SASS (cuobjdump -sass)")
-    if hgmma == 0:
-        raise AssertionError("the sm90 flash kernel has no HGMMA: it does "
-                             "not run on the tensor cores")
+    if n != 8 or "flash_attention_f32_sm90.cu" not in log:
+        raise AssertionError(f"expected eight kernel sources, built {n}")
+    # Tensor-core instructions in each tensor-core flash kernel's SASS:
+    # wgmma is HGMMA, mma.sync HMMA.  Both kernels are built on wgmma, so
+    # HGMMA must be there; HMMA is printed only.
+    for source, kernel in (
+            ("flash_attention_sm90.cu", "flash_attention_sm90_kernel"),
+            ("flash_attention_f32_sm90.cu",
+             "flash_attention_f32_sm90_kernel")):
+        counts = {op: sass_count(_build.library_path(), kernel, op)
+                  for op in ("HGMMA", "HMMA")}
+        say("build", f"{source}: {counts['HGMMA']} HGMMA and "
+                     f"{counts['HMMA']} HMMA instructions in its kernels' "
+                     f"SASS (cuobjdump -sass)")
+        if not counts["HGMMA"]:
+            raise AssertionError(f"{source} has no HGMMA: its products do "
+                                 f"not run on wgmma")
     floor = screen_sass_per_pair_sample(_build.library_path())
     for regime, f in sorted(floor.items()):
         say("build", f"encounter_screen.cu {regime}-K kernel: "
@@ -576,16 +612,17 @@ def demangle(mangled) -> dict:
     return dict(zip(mangled, out.splitlines()))
 
 
-def hgmma_count(library) -> int:
-    """HGMMA instructions in the SASS of the sm90 flash kernels."""
+def sass_count(library, kernel: str, opcode: str) -> int:
+    """``opcode`` instructions in the SASS of the kernels whose mangled
+    name holds ``kernel``."""
     cuobjdump = (shutil.which("cuobjdump")
                  or "/usr/local/cuda/bin/cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(library)],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
-    return sum(fn.count("HGMMA") for fn in sass.split("Function : ")
-               if fn.startswith("_") and "flash_attention_sm90" in
-               fn.split("\n", 1)[0])
+    return sum(len(re.findall(rf"\b{opcode}\b", fn))
+               for fn in sass.split("Function : ")
+               if fn.startswith("_") and kernel in fn.split("\n", 1)[0])
 
 
 def screen_sass_per_pair_sample(library) -> dict:
@@ -1730,7 +1767,8 @@ def phase_flash() -> dict:
     cases.append((FLASH_BF16_SHAPE, torch.bfloat16))
     cases += [((1, 32, 8, T, T, 160, True), dt) for T in FLASH_LM_T
               for dt in (torch.bfloat16, torch.float32)]
-    cases.append((FLASH_MAIN_PATH_SHAPE, torch.bfloat16))
+    cases += [(FLASH_MAIN_PATH_SHAPE, dt)
+              for dt in (torch.bfloat16, torch.float32)]
     cases += [(shape, torch.bfloat16) for shape in FLASH_ARMS_SHAPES]
     res = {"per_shape": {}, "max_abs_err": 0.0}
     for (B, H, KV, T, S, hd, causal), dt in cases:
@@ -1738,7 +1776,7 @@ def phase_flash() -> dict:
                    for shape in ((B, H, T, hd), (B, KV, S, hd),
                                  (B, KV, S, hd)))
         bf16 = dt == torch.bfloat16
-        route = "sm90" if bf16 else "cuda_core"
+        route = "sm90" if bf16 else "sm90_f32"
         before = dict(flash_mod.launches_by_route)
         got = flash_mod.flash_attention(q, k, v, causal=causal)
         want = ref.flash_attention_ref(q, k, v, causal=causal)
@@ -1772,21 +1810,20 @@ def phase_flash() -> dict:
                    q, k, v, causal=causal), runs=runs),
                "plain_ms": device_ms(lambda: ref.flash_attention_ref(
                    q, k, v, causal=causal), runs=runs),
-               "library_ms": None, "cuda_core_ms": None}
-        if bf16:
-            # The CUDA-core kernel's bf16 entry (the route of every bf16
-            # input before the tensor-core kernel), called directly on
-            # the same inputs.
-            old = flash_mod._launch("cuda_core", q, k, v, causal=causal)
-            torch.cuda.synchronize()
-            row["cuda_core_max_abs_err"], old_ok, _ = gate(old)
-            if not old_ok:
-                raise AssertionError(f"the CUDA-core bf16 entry at {name} "
-                                     f"disagrees with the plain version")
-            del old
-            row["cuda_core_ms"] = device_ms(lambda: flash_mod._launch(
-                "cuda_core", q, k, v, causal=causal), runs=runs)
-        if T == S:
+               "library_ms": None}
+        # The CUDA-core kernel's entry for this dtype (the route of every
+        # input before the tensor-core kernels), called directly on the
+        # same inputs and held to the same gate.
+        old = flash_mod._launch("cuda_core", q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        row["cuda_core_max_abs_err"], old_ok, _ = gate(old)
+        if not old_ok:
+            raise AssertionError(f"the CUDA-core entry at {name} disagrees "
+                                 f"with the plain version")
+        del old
+        row["cuda_core_ms"] = device_ms(lambda: flash_mod._launch(
+            "cuda_core", q, k, v, causal=causal), runs=runs)
+        if T == S and bf16:
             lib = F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                                  enable_gqa=True)
             (row["library_max_abs_err"], _,
@@ -1795,21 +1832,55 @@ def phase_flash() -> dict:
             row["library_ms"] = device_ms(
                 lambda: F.scaled_dot_product_attention(
                     q, k, v, is_causal=causal, enable_gqa=True), runs=runs)
-        rate = BF16_OPS_PER_S if bf16 else F32_OPS_PER_S
-        row["bound_ms"], row["bound_by"] = flash_bound(
-            B, H, KV, T, S, hd, causal, q.element_size(), rate)
+        elif T == S:
+            # In f32, SDPA with enable_gqa takes its math path; the
+            # memory-efficient kernel (f32 on the tensor cores, CUTLASS's
+            # OpMultiplyAddFastF32) takes k and v at H heads, repeated
+            # here outside the timed calls.
+            from torch.nn.attention import SDPBackend, sdpa_kernel
+            kx, vx = (x.repeat_interleave(H // KV, dim=1) for x in (k, v))
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                lib = F.scaled_dot_product_attention(q, kx, vx,
+                                                     is_causal=causal)
+                (row["library_max_abs_err"], _,
+                 row["library_outside_gate"]) = gate(lib)
+                del lib
+                row["library_ms"] = device_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q, kx, vx, is_causal=causal), runs=runs)
+            del kx, vx
         if bf16:
-            # The sm90 kernel's own floor: 2 hd for the score and 4 hd for
-            # P.V issued twice (hi and lo) per kept pair.
+            row["bound_ms"], row["bound_by"] = flash_bound(
+                B, H, KV, T, S, hd, causal, q.element_size(),
+                BF16_OPS_PER_S)
+            # The sm90 kernel's own floor: 2 hd for the score and 4 hd
+            # for P.V run twice (hi and lo) per kept pair, in bf16.
             floor_ms, _ = flash_bound(
-                B, H, KV, T, S, hd, causal, q.element_size(), rate,
-                ops_per_pair=6 * hd)
+                B, H, KV, T, S, hd, causal, q.element_size(),
+                BF16_OPS_PER_S, ops_per_pair=6 * hd)
+            floor = f", design floor {floor_ms:.4f} ms"
+        else:
+            # f32-accurate products run fastest on the tensor cores as
+            # split TF32: both products three times, 12 hd per kept pair
+            # at the TF32 rate.  The CUDA cores' 4 hd per pair at the f32
+            # rate, the bound before the tensor-core kernel, is kept
+            # beside it.
+            row["bound_ms"], row["bound_by"] = flash_bound(
+                B, H, KV, T, S, hd, causal, q.element_size(),
+                TF32_OPS_PER_S, ops_per_pair=12 * hd)
+            row["cuda_core_bound_ms"], _ = flash_bound(
+                B, H, KV, T, S, hd, causal, q.element_size(),
+                F32_OPS_PER_S)
+            floor = (f", CUDA-core bound "
+                     f"{row['cuda_core_bound_ms']:.4f} ms")
         lib = ("-" if row["library_ms"] is None
                else f"{row['library_ms']:.4f}")
-        extra = ("" if not bf16 else
-                 f", CUDA-core bf16 entry {row['cuda_core_ms']:.4f} ms "
-                 f"({row['cuda_core_ms'] / row['ms']:.1f}x), design floor "
-                 f"{floor_ms:.4f} ms")
+        extra = (f", CUDA-core {str(dt)[6:]} entry "
+                 f"{row['cuda_core_ms']:.4f} ms "
+                 f"({row['cuda_core_ms'] / row['ms']:.1f}x)" + floor)
+        if row["library_ms"] is not None:
+            extra += (f"; library {row['library_ms'] / row['ms']:.2f}x "
+                      f"the kernel's time")
         if "library_outside_gate" in row:
             extra += (f"; SDPA outside the gate: "
                       f"{row['library_outside_gate']:.4f} of the outputs")
@@ -2547,6 +2618,7 @@ def phase_lm() -> dict:
               f"{launches} by route {by_route}; max|flash - xla| / max|xla| "
               f"{rel:.3g} (gate {LM_REL_GATE}); finite {finite}")
     if launches != cfg.n_layers or by_route != {"sm90": cfg.n_layers,
+                                                "sm90_f32": 0,
                                                 "cuda_core": 0}:
         raise AssertionError(f"flash forward launched the kernel {launches} "
                              f"times ({by_route}), expected "
@@ -2596,6 +2668,160 @@ def phase_lm() -> dict:
     return {"launches": launches, "launches_by_route": by_route,
             "forward_tokens_per_s": n_tok / flash_s,
             "forward_flash_share": flash_share}
+
+
+@contextlib.contextmanager
+def f32_flash_route(name: str):
+    """Send f32 flash inputs to the route ``name`` while inside (the
+    route rule of every other dtype unchanged): phase 7a's CUDA-core
+    forward, the f32 route before the split-TF32 kernel."""
+    import torch
+    from repro_torch.kernels import flash_attention as flash_mod
+    rule = flash_mod.route
+    flash_mod.route = (lambda dtype, hd: name if dtype == torch.float32
+                       else rule(dtype, hd))
+    try:
+        yield
+    finally:
+        flash_mod.route = rule
+
+
+def phase_lm_f32() -> dict:
+    """stablelm-12b with f32 parameters and activations at full width and
+    depth: forward with the flash kernel (the split-TF32 route, 40
+    launches) and with xla, logits compared; the same flash forward with
+    f32 sent to the CUDA-core kernel; each flash forward profiled once
+    (device time by kind of kernel)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.models import model as M
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_arch(LM_ARCH), param_dtype="float32",
+                              activation_dtype="float32")
+    cfg_flash = dataclasses.replace(cfg, attention_impl="flash")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    say("lm-f32", f"{cfg.name} in f32: {cfg.n_layers} layers, d_model "
+                  f"{cfg.d_model}, {cfg.n_heads} heads (kv {cfg.n_kv_heads},"
+                  f" hd {cfg.head_dim_}): {n_params} parameters, "
+                  f"{n_bytes / 1e9:.2f} GB on the card, drawn in "
+                  f"{time.perf_counter() - t0:.2f}s")
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (LM_B, LM_T))
+                            .astype(np.int32)).to(dev)
+    n_tok = LM_B * LM_T
+
+    def timed_forward(c):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = M.forward(c, params, {"tokens": toks})
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def counted_forward():
+        """A flash forward with the counters zeroed just before and read
+        just after: (logits, seconds, launches, by route, peak bytes)."""
+        torch.cuda.reset_peak_memory_stats()
+        flash_mod.launches = 0
+        for r in flash_mod.launches_by_route:
+            flash_mod.launches_by_route[r] = 0
+        out, sec = timed_forward(cfg_flash)
+        return (out, sec, flash_mod.launches,
+                dict(flash_mod.launches_by_route),
+                torch.cuda.max_memory_allocated())
+
+    def profiled_forward() -> dict:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            M.forward(cfg_flash, params, {"tokens": toks})
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        split = _kernel_split(_device_busy(prof))
+        busy = sum(split.values())
+        return {"wall_ms": wall_ms, "busy_ms": busy, "split_ms": split,
+                "flash_share": split["flash"] / busy}
+
+    _, warm_s = timed_forward(cfg)              # cuBLAS and allocator warm-up
+    del _
+    lf, flash_s, launches, by_route, peak_flash = counted_forward()
+    torch.cuda.reset_peak_memory_stats()
+    lx, xla_s = timed_forward(cfg)
+    peak_xla = torch.cuda.max_memory_allocated()
+    with f32_flash_route("cuda_core"):
+        lc, cc_s, cc_launches, cc_by_route, peak_cc = counted_forward()
+    finite = all(bool(torch.isfinite(x).all()) for x in (lf, lx, lc))
+    shapes = {tuple(x.shape) for x in (lf, lx, lc)}
+    rel, rel_cc, rel_new_cc = (rel_diff(lf, lx), rel_diff(lc, lx),
+                               rel_diff(lf, lc))
+    del lf, lx, lc
+    res = {"params": n_params, "gb": n_bytes / 1e9, "launches": launches,
+           "launches_by_route": by_route,
+           "forward_tokens_per_s": n_tok / flash_s,
+           "forward_xla_tokens_per_s": n_tok / xla_s,
+           "peak_gb": peak_flash / 1e9, "flash_xla_rel": rel,
+           "cuda_core": {"launches_by_route": cc_by_route,
+                         "forward_tokens_per_s": n_tok / cc_s,
+                         "peak_gb": peak_cc / 1e9, "flash_xla_rel": rel_cc},
+           "flash_vs_cuda_core_rel": rel_new_cc}
+    say("lm-f32", f"forward B={LM_B} T={LM_T}: flash (sm90_f32) "
+                  f"{flash_s:.3f}s ({n_tok / flash_s:.1f} tokens/s, peak "
+                  f"{peak_flash / 1e9:.2f} GB), xla {xla_s:.3f}s "
+                  f"({n_tok / xla_s:.1f} tokens/s, peak {peak_xla / 1e9:.2f}"
+                  f" GB), flash on the CUDA-core route {cc_s:.3f}s "
+                  f"({n_tok / cc_s:.1f} tokens/s, peak {peak_cc / 1e9:.2f} "
+                  f"GB), first (xla, warm-up) {warm_s:.3f}s; flash launches "
+                  f"{launches} by route {by_route}, CUDA-core forward "
+                  f"{cc_by_route}; finite {finite}")
+    say("lm-f32", f"max|flash - xla| / max|xla|: sm90_f32 {rel:.3g}, "
+                  f"CUDA-core {rel_cc:.3g} (gate {LM_F32_REL_GATE}); "
+                  f"sm90_f32 vs CUDA-core {rel_new_cc:.3g}")
+    n = cfg.n_layers
+    if launches != n or by_route != {"sm90": 0, "sm90_f32": n,
+                                     "cuda_core": 0}:
+        raise AssertionError(f"f32 flash forward launched the kernel "
+                             f"{launches} times ({by_route}), expected {n}, "
+                             f"all on the sm90_f32 route")
+    if cc_by_route != {"sm90": 0, "sm90_f32": 0, "cuda_core": n}:
+        raise AssertionError(f"the CUDA-core f32 forward went through "
+                             f"{cc_by_route}")
+    if not finite or shapes != {(LM_B, LM_T, cfg.vocab_size)}:
+        raise AssertionError(f"f32 forward logits: shapes {shapes}, finite "
+                             f"{finite}")
+    if not (rel < LM_F32_REL_GATE and rel_cc < LM_F32_REL_GATE):
+        raise AssertionError(f"f32 flash and xla logits differ: sm90_f32 "
+                             f"{rel}, CUDA-core {rel_cc}")
+
+    # Where each f32 flash forward's device time goes, by kind of kernel.
+    for label, key in (("sm90_f32", None), ("CUDA-core", "cuda_core")):
+        if key is None:
+            prof = profiled_forward()
+            res.update(profile=prof, forward_flash_share=prof["flash_share"])
+        else:
+            with f32_flash_route(key):
+                prof = profiled_forward()
+            res[key].update(profile=prof,
+                            forward_flash_share=prof["flash_share"])
+        say("lm-f32", f"profiled flash forward, {label} route: "
+                      f"{prof['wall_ms']:.1f} ms wall, device busy "
+                      f"{prof['busy_ms']:.1f} ms (idle share "
+                      f"{1 - prof['busy_ms'] / prof['wall_ms']:.4f}); by "
+                      f"kind: " + ", ".join(
+                          f"{k} {v:.1f} ms ({v / prof['busy_ms']:.4f})"
+                          for k, v in prof["split_ms"].items()))
+    del params
+    torch.cuda.empty_cache()
+    return res
 
 
 def layerwise_flash_vs_xla(cfg, params, batch) -> tuple[float, int]:
@@ -2806,6 +3032,7 @@ def phase_lm_arms() -> dict:
                     f"token rows at or past {LM_REL_GATE}: {rows_out:.5f}); "
                     f"finite {finite}")
         gate(launches == n_attn and by_route == {"sm90": n_attn,
+                                                 "sm90_f32": 0,
                                                  "cuda_core": 0},
              f"{name}: flash forward launched the kernel {launches} times "
              f"({by_route}), expected {n_attn}, all on the sm90 route")
@@ -3730,6 +3957,7 @@ def main() -> int:
     phase_trace(dag_trace)
     flash = phase_flash()
     lm = phase_lm()
+    lm_f32 = phase_lm_f32()
     arms = phase_lm_arms()
     bench = phase_bench()
     serving = phase_serving(card, globe)
@@ -3806,6 +4034,8 @@ def main() -> int:
     top_name = f"B=1 H=32 KV=8 T={FLASH_LM_T[-1]} S={FLASH_LM_T[-1]} " \
                f"hd=160 causal bfloat16"
     top = flash["per_shape"][top_name]
+    f32_name = top_name.replace("bfloat16", "float32")
+    f32 = flash["per_shape"][f32_name]
     rows.append({
         "name": "flash_attention", "route": "cuda",
         "source": os.path.relpath(_build.SRC_DIR / "flash_attention_sm90.cu",
@@ -3825,6 +4055,18 @@ def main() -> int:
         "per_shape": flash["per_shape"],
         "lm_forward_tokens_per_s": lm["forward_tokens_per_s"],
         "lm_forward_flash_share": lm["forward_flash_share"],
+        "f32_source": os.path.relpath(
+            _build.SRC_DIR / "flash_attention_f32_sm90.cu", HERE),
+        "f32_shape": f32_name, "f32_ms": f32["ms"],
+        "f32_plain_ms": f32["plain_ms"],
+        "f32_library_ms": f32["library_ms"],
+        "f32_bound_ms": f32["bound_ms"],
+        "cuda_core_f32_bound_ms": f32["cuda_core_bound_ms"],
+        "cuda_core_f32_ms": f32["cuda_core_ms"],
+        "lm_f32_forward_tokens_per_s": lm_f32["forward_tokens_per_s"],
+        "lm_f32_forward_flash_share": lm_f32["forward_flash_share"],
+        "launches_lm_f32": lm_f32["launches_by_route"],
+        "lm_f32": lm_f32,
         "launches_lm_arms": {n: r["launches"] for n, r in arms.items()},
         "lm_arms": arms,
     })

@@ -34,9 +34,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # compute them, for the kernels held bitwise to them.  The sources named
 # here are held to a tolerance instead and may fuse: the CUDA-core flash
 # kernel runs about 1.2x faster so on an H100 (kernels/fmad_ab.py times
-# both); the tensor-core one is held to the same tolerance (there the
-# flag decides little: its exponent argument is an explicit fmaf).
-FMA_SOURCES = ("flash_attention.cu", "flash_attention_sm90.cu")
+# both); the tensor-core ones are held to the same tolerance (there the
+# flag decides little: their exponent argument is an explicit fmaf).
+FMA_SOURCES = ("flash_attention.cu", "flash_attention_sm90.cu",
+               "flash_attention_f32_sm90.cu")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -57,6 +58,8 @@ SIGNATURES = {
                              _P),
     "flash_attention_bf16_sm90": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                   _F, _P),
+    "flash_attention_f32_sm90": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                 _F, _P),
     "launch_floor": (_I, _I, _I, _P),
 }
 

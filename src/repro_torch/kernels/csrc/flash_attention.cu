@@ -20,10 +20,11 @@
 // the 16 threads that share a row reduce its maximum and sum with warp
 // shuffles, and the probabilities go through shared memory into a
 // 4 rows x ceil(hd/16) columns register block of acc.  Tiles strictly
-// above the causal diagonal are never visited.  This kernel serves f32
-// inputs and bf16 inputs whose head_dim is not a multiple of 8; other
-// bf16 inputs go to the tensor-core kernel, flash_attention_sm90.cu
-// (the routing rule is in kernels/flash_attention.py).
+// above the causal diagonal are never visited.  This kernel serves
+// inputs whose head_dim is not a multiple of 8, in f32 and in bf16;
+// other inputs go to the tensor-core kernels, flash_attention_sm90.cu
+// (bf16) and flash_attention_f32_sm90.cu (f32, as split TF32).  The
+// routing rule is in kernels/flash_attention.py.
 //
 // Numerics follow the TPU kernel: q is scaled by hd^-0.5 before the
 // product, scores and statistics are f32, acc is rescaled by
@@ -31,7 +32,8 @@
 // are -inf, and the statistics treat a row that has seen no valid key
 // yet as m = 0, so such a row keeps l = 0 and acc = 0 and is written as
 // 0 (the TPU kernel writes 0 when it skips such a row's blocks, and a
-// block-size-dependent share of v when it visits one).  Any T, S, H % KV
+// block-size-dependent share of v when it visits one); a NaN row stays
+// NaN.  Any T, S, H % KV
 // == 0 and hd <= 192; rows past T and keys past S are masked by length,
 // so no padding is needed.  This source builds with -fmad=true: the
 // kernel is held to a tolerance (rtol/atol 2e-5 in f32), not bitwise.
@@ -194,7 +196,7 @@ flash_attention_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < kDims; ++j) {
       const int d = tx + 16 * j;
-      if (d < hd) store_from_f32(out + d, l[i] > 0.0f ? acc[i][j] / l[i] : 0.0f);
+      if (d < hd) store_from_f32(out + d, l[i] != 0.0f ? acc[i][j] / l[i] : 0.0f);
     }
   }
 }

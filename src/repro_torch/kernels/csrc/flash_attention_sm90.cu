@@ -3,8 +3,9 @@
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py (_kernel,
 // lines 44-93; pl.pallas_call at line 124) for bf16 inputs with hd % 8 ==
-// 0 and hd <= 192; csrc/flash_attention.cu keeps f32 inputs (wgmma takes
-// f32 only as TF32) and any other bf16 head_dim.
+// 0 and hd <= 192; csrc/flash_attention_f32_sm90.cu serves f32 inputs of
+// those head_dims (as split TF32) and csrc/flash_attention.cu any other
+// head_dim.
 //
 // Bound: operations.  Each (query, key) pair the mask keeps costs 2*hd
 // flops for the score and 2*hd for the weighted sum (4*hd at 989 TFLOP/s
@@ -40,8 +41,9 @@
 // The softmax is the f32 recurrence of csrc/flash_attention.cu: masked
 // scores are -inf, a row that has seen no valid key keeps m = 0 for its
 // exponentials, l sums the f32 p, acc is rescaled by exp(m_prev - m_new),
-// and a row whose l = 0 is written as 0.  P itself is not rounded once to
-// bf16 (that breaks the gate of one bf16 rounding of the f32 result,
+// and a row whose l = 0 is written as 0 (a NaN row stays NaN).  P itself
+// is not rounded once to bf16 (that breaks the gate of one bf16 rounding
+// of the f32 result,
 // rtol 2^-8, for about a quarter of the outputs at T = 2048): it is split
 // into hi = bf16(p) and lo = bf16(p - hi), and both go through the P.V
 // wgmma into the same f32 accumulator.  The epilogue divides by l and
@@ -511,7 +513,7 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
       const int t = row0 + 8 * r;
       if (t >= T) continue;
       __nv_bfloat16* out = o + (static_cast<long long>(bh) * T + t) * hd;
-      const bool any = l[r] > 0.0f;
+      const bool any = l[r] != 0.0f;      // a NaN row stays NaN
 #pragma unroll
       for (int j = 0; j < kHdp / 8; ++j) {
         const int c = 8 * j + col0;

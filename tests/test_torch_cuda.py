@@ -14,6 +14,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 
@@ -888,7 +889,8 @@ def test_flash_attention_sm90_route(dev, hd, T, S, causal):
     got = flash_mod.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert flash_mod.launches_by_route == {
-        "sm90": before["sm90"] + 1, "cuda_core": before["cuda_core"]}
+        "sm90": before["sm90"] + 1, "sm90_f32": before["sm90_f32"],
+        "cuda_core": before["cuda_core"]}
     assert got.dtype == torch.bfloat16
     want = ref.flash_attention_ref(q, k, v, causal=causal)
     torch.testing.assert_close(got.float(), want, rtol=2 ** -8, atol=1e-5)
@@ -911,12 +913,201 @@ def test_flash_attention_cuda_core_bf16_route(dev, hd, T, S, causal):
     got = flash_mod.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert flash_mod.launches_by_route == {
-        "sm90": before["sm90"], "cuda_core": before["cuda_core"] + 1}
+        "sm90": before["sm90"], "sm90_f32": before["sm90_f32"],
+        "cuda_core": before["cuda_core"] + 1}
     assert got.dtype == torch.bfloat16
     want = ref.flash_attention_ref(q, k, v, causal=causal)
     torch.testing.assert_close(got.float(), want, rtol=2 ** -8, atol=1e-5)
     if causal and T > S:
         assert not got[:, :, :T - S].any()
+
+
+SM90_F32_HEAD_DIMS = (16, 24, 40, 64, 128, 160, 192)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("T,S", [(200, 200), (130, 333), (300, 111)],
+                         ids=["T=S", "T<S", "T>S"])
+@pytest.mark.parametrize("hd", SM90_F32_HEAD_DIMS)
+def test_flash_attention_sm90_f32_route(dev, hd, T, S, causal):
+    """f32 with a head_dim that is a multiple of 8 goes through the
+    split-TF32 tensor-core kernel, with T = S, T < S and T > S (rows with
+    no key exactly 0), S never a multiple of a key tile, causal and full;
+    each output within the f32 tolerance (rtol/atol 2e-5) of the plain
+    version."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    q, k, v = _qkv(dev, 2, 8, 2, T, S, hd, seed=hd + T + S)
+    before = dict(flash_mod.launches_by_route)
+    got = flash_mod.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_mod.launches_by_route == {
+        "sm90": before["sm90"], "sm90_f32": before["sm90_f32"] + 1,
+        "cuda_core": before["cuda_core"]}
+    assert got.dtype == torch.float32
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    if causal and T > S:
+        assert not got[:, :, :T - S].any()
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("T,S", [(200, 200), (130, 333), (300, 111)],
+                         ids=["T=S", "T<S", "T>S"])
+@pytest.mark.parametrize("hd", (12, 100))
+def test_flash_attention_cuda_core_f32_route(dev, hd, T, S, causal):
+    """f32 with a head_dim that is not a multiple of 8 stays on the
+    CUDA-core kernel's f32 entry, held to the same f32 tolerance."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    q, k, v = _qkv(dev, 2, 8, 2, T, S, hd, seed=hd + T + S)
+    before = dict(flash_mod.launches_by_route)
+    got = flash_mod.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_mod.launches_by_route == {
+        "sm90": before["sm90"], "sm90_f32": before["sm90_f32"],
+        "cuda_core": before["cuda_core"] + 1}
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    if causal and T > S:
+        assert not got[:, :, :T - S].any()
+
+
+def test_flash_attention_cuda_core_f32_entry_beside_sm90_f32(dev):
+    """The CUDA-core f32 entry stays callable directly (chip_smoke times
+    it beside the tensor-core kernel) and meets the same tolerance at
+    stablelm's heads."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    q, k, v = _qkv(dev, 1, 32, 8, 512, 512, 160, seed=11)
+    before = dict(flash_mod.launches_by_route)
+    old = flash_mod._launch("cuda_core", q, k, v)
+    new = flash_mod.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_mod.launches_by_route == {
+        "sm90": before["sm90"], "sm90_f32": before["sm90_f32"] + 1,
+        "cuda_core": before["cuda_core"] + 1}
+    want = ref.flash_attention_ref(q, k, v)
+    torch.testing.assert_close(old, want, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(new, want, rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_sm90_f32_takes_strided_views(dev):
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import ops
+    q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2)
+               for x in _qkv(dev, 2, 8, 2, 96, 96, 160, seed=3))
+    assert not q.is_contiguous()
+    before = flash_mod.launches_by_route["sm90_f32"]
+    got = ops.flash_attention(q, k, v)
+    assert flash_mod.launches_by_route["sm90_f32"] == before + 1
+    torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_sm90_f32_copies_unaligned_bases(dev):
+    """cp.async reads 16 bytes from 16-byte-aligned addresses: a
+    contiguous view that starts 4 bytes in is copied by the wrapper, and
+    stays on the sm90_f32 route."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    shapes = ((1, 4, 70, 64), (1, 2, 90, 64), (1, 2, 90, 64))
+    g = torch.Generator(device=dev).manual_seed(9)
+    q, k, v = (torch.randn(math.prod(s) + 1, generator=g, device=dev)[1:]
+               .view(s) for s in shapes)
+    assert q.data_ptr() % 16 and q.is_contiguous()
+    before = flash_mod.launches_by_route["sm90_f32"]
+    got = flash_mod.flash_attention(q, k, v)
+    assert flash_mod.launches_by_route["sm90_f32"] == before + 1
+    torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype,hd,route", [
+    (torch.float32, 160, "sm90_f32"), (torch.float32, 100, "cuda_core"),
+    (torch.bfloat16, 160, "sm90"), (torch.bfloat16, 100, "cuda_core")])
+def test_flash_attention_keeps_a_nan_row_nan(dev, dtype, hd, route):
+    """A NaN in q makes its row NaN, as in the plain version (each kernel
+    once wrote such a row as 0: its l is NaN, and only l = 0 means no
+    key); rows that see no key stay 0 and every other row matches."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    q, k, v = _qkv(dev, 1, 4, 2, 200, 150, hd, seed=hd, dtype=dtype)
+    q[0, 1, 120, 3] = float("nan")
+    before = flash_mod.launches_by_route[route]
+    got = flash_mod.flash_attention(q, k, v).float()
+    torch.cuda.synchronize()
+    assert flash_mod.launches_by_route[route] == before + 1
+    want = ref.flash_attention_ref(q, k, v)
+    assert want[0, 1, 120].isnan().all() and got[0, 1, 120].isnan().all()
+    assert not got[:, :, :50].any()
+    keep = torch.ones(200, dtype=torch.bool, device=dev)
+    keep[:50] = False
+    got[0, 1, 120] = want[0, 1, 120] = 0.0
+    rtol, atol = (2e-5, 2e-5) if dtype == torch.float32 else (2 ** -8, 1e-5)
+    torch.testing.assert_close(got[:, :, keep], want[:, :, keep], rtol=rtol,
+                               atol=atol)
+
+
+_TF32_SPLIT_CHECK = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+%s
+extern "C" __global__ void split_both(const float* x, uint32_t* rna,
+                                      uint32_t* hi, uint32_t* lo, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %%0, %%1;\n" : "=r"(r) : "f"(x[i]));
+  rna[i] = r;
+  split(x[i], hi[i], lo[i]);
+}
+extern "C" int run(const float* x, uint32_t* rna, uint32_t* hi,
+                   uint32_t* lo, int n) {
+  split_both<<<(n + 255) / 256, 256>>>(x, rna, hi, lo, n);
+  return static_cast<int>(cudaDeviceSynchronize());
+}
+"""
+
+
+def test_f32_flash_split_rounds_as_cvt_rna(dev, tmp_path):
+    """The f32 flash kernel's split() (csrc/flash_attention_f32_sm90.cu),
+    compiled on its own beside cvt.rna.tf32.f32 on 2^24 f32 values (many
+    binades, ties, +-inf, +-0, the largest finite values, subnormals):
+    its integer hi is cvt.rna's result bit for bit for every value but
+    NaN, hi + lo is x exactly wherever x and hi are finite, and a NaN x leaves
+    lo NaN, so NaN still reaches the products."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    text = (_build.SRC_DIR / "flash_attention_f32_sm90.cu").read_text()
+    split = re.search(r"__device__ __forceinline__ void split\(.*?\n\}\n",
+                      text, re.S).group(0)
+    src, so = tmp_path / "split.cu", tmp_path / "split.so"
+    src.write_text(_TF32_SPLIT_CHECK % split)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS[:6], "-shared",
+                    str(src), "-o", str(so)], check=True,
+                   capture_output=True, text=True)
+    lib = ctypes.CDLL(str(so))
+    g = torch.Generator(device=dev).manual_seed(0)
+    n = 1 << 24
+    x = torch.randn(n, generator=g, device=dev) * torch.exp2(
+        torch.randint(-60, 60, (n,), generator=g, device=dev).float())
+    # Ties (the 13 dropped bits exactly 0x1000), the edges, and NaNs.
+    x[:4096] = (x[:4096].view(torch.int32) & ~0x1FFF | 0x1000).view(
+        torch.float32)
+    edges = [float("inf"), -float("inf"), 0.0, -0.0, 3.4028235e38,
+             -3.4028235e38, 3.3e38, 1e-40, -1e-40, 1.5e-45]
+    x[4096:4096 + len(edges)] = torch.tensor(edges, device=dev)
+    x[5000:5004] = float("nan")
+    x.view(torch.int32)[5004] = 0x7FFFFFFF    # the add carries into the sign
+    rna, hi, lo = (torch.empty(n, dtype=torch.int32, device=dev)
+                   for _ in range(3))
+    assert lib.run(*(ctypes.c_void_p(t.data_ptr())
+                     for t in (x, rna, hi, lo)), ctypes.c_int(n)) == 0
+    nan = x.isnan()
+    assert int(nan.sum()) == 5
+    assert torch.equal(hi[~nan], rna[~nan])
+    hi_f, lo_f = hi.view(torch.float32), lo.view(torch.float32)
+    assert lo_f[nan].isnan().all()
+    finite = hi_f.isfinite() & x.isfinite()   # 0x7FFFFFFF's hi is -0
+    assert int((~hi_f.isfinite() & x.isfinite()).sum()) == 2   # +-FLT_MAX
+    assert torch.equal(hi_f[finite] + lo_f[finite], x[finite])
 
 
 def test_flash_attention_sm90_takes_strided_views(dev):

@@ -125,13 +125,15 @@ def test_wrapper_never_runs_plain_version_off_the_cpu():
     (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 128, "sm90"),
     (torch.bfloat16, 160, "sm90"), (torch.bfloat16, 192, "sm90"),
     (torch.bfloat16, 12, "cuda_core"), (torch.bfloat16, 100, "cuda_core"),
-    (torch.float32, 160, "cuda_core"), (torch.float32, 64, "cuda_core"),
+    (torch.float32, 160, "sm90_f32"), (torch.float32, 64, "sm90_f32"),
+    (torch.float32, 192, "sm90_f32"), (torch.float32, 12, "cuda_core"),
+    (torch.float32, 100, "cuda_core"),
 ])
 def test_route_rule(dtype, hd, want):
-    """bf16 with head_dim % 8 == 0 goes to the tensor-core kernel; f32 and
-    any other bf16 head_dim stay on the CUDA-core kernel.  Every
-    head_dim of the configs and the JAX tests takes the sm90 route in
-    bf16."""
+    """head_dim % 8 == 0 (up to 192) goes to a tensor-core kernel: sm90 in
+    bf16, sm90_f32 (split TF32) in f32; any other head_dim stays on the
+    CUDA-core kernel in either dtype.  Every head_dim of the configs and
+    the JAX tests takes a tensor-core route."""
     assert flash_mod.route(dtype, hd) == want
 
 
@@ -205,3 +207,110 @@ def test_one_bf16_rounding_of_p_breaks_the_gate():
     outside = np.abs(got.float().numpy() - want) > 1e-5 + 2 ** -8 * np.abs(
         want)
     assert outside.mean() > 0.05
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as cvt.rna.tf32.f32 rounds a finite f32: add half of TF32's
+    last place to the magnitude's bits, then clear the 13 bits TF32 does
+    not keep."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x):
+    """The kernel's split: hi = x rounded to TF32, lo = x - hi (exact in
+    f32), which the tensor cores read truncated to TF32."""
+    hi = _tf32(x)
+    lo = (x - hi).contiguous().view(torch.int32)
+    return hi, (lo & ~0x1FFF).view(torch.float32)
+
+
+def _emulate_sm90_f32(q, k, v, *, causal, split, key_tile=32):
+    """The sm90_f32 kernel's arithmetic on f32 inputs, on the CPU.
+
+    Per key tile (32 keys at hd 160): S from the split-TF32 product
+    (``_split``), hi.hi and lo.hi + hi.lo summed apart, scaled by hd^-0.5
+    afterwards; the
+    online softmax in f32 (masked scores -inf, l summed from the f32 p,
+    acc rescaled by exp(m_prev - m_new)); O += P v, again split; acc / l
+    once.  Each product of two TF32 values is exact in f32, so only the
+    order of the f32 sums differs from the tensor cores'.  With
+    ``split=False`` each product is one TF32 product of the operands
+    rounded to TF32.
+    """
+    B, H, T, hd = q.shape
+    KV, S = k.shape[1], k.shape[2]
+    g = H // KV
+    kf = k.repeat_interleave(g, dim=1)
+    vf = v.repeat_interleave(g, dim=1)
+    qh, ql = _split(q)
+    m = torch.full((B, H, T, 1), -torch.inf)
+    l = torch.zeros((B, H, T, 1))
+    acc = torch.zeros((B, H, T, hd))
+    t = torch.arange(T)[:, None]
+    for k0 in range(0, S, key_tile):
+        cols = torch.arange(k0, min(k0 + key_tile, S))
+        kh, kl = _split(kf[:, :, cols].transpose(-1, -2))
+        vh, vl = _split(vf[:, :, cols])
+        s = qh @ kh
+        if split:
+            s = s + (ql @ kh + qh @ kl)
+        s = s * hd ** -0.5
+        if causal:
+            s = torch.where(cols[None, :] <= t + (S - T), s, -torch.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        m_use = torch.where(m_new == -torch.inf, 0.0, m_new)
+        p = torch.exp(s - m_use)
+        corr = torch.exp(m - m_use)
+        l = l * corr + p.sum(-1, keepdim=True)
+        ph, pl = _split(p)
+        pv = ph @ vh
+        if split:
+            pv = (pl @ vh + ph @ vl) + pv
+        acc = acc * corr + pv
+        m = m_new
+    return torch.where(l > 0, acc / l, 0.0)
+
+
+def _stablelm_heads_f32():
+    """stablelm-12b's head shape (hd 160, GQA 4:1) at T = S = 512 in f32,
+    and the JAX oracle's output on the same values."""
+    q, k, v = _qkv(1, 8, 2, 512, 512, 160, 24)
+    want = np.asarray(jax_ref.flash_attention_ref(
+        *map(jnp.asarray, (q, k, v))))
+    return (*map(torch.from_numpy, (q, k, v)), want)
+
+
+def test_tf32_rounding_is_exact_split():
+    """hi + lo carries x to within 2^-21 |x| and both are TF32 values
+    (the 13 low bits clear); hi is the nearest TF32 value, ties away
+    from zero."""
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        size=4096).astype(np.float32))
+    hi, lo = _split(x)
+    for part in (hi, lo):
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    assert ((hi - x).abs() <= 2.0 ** -11 * x.abs()).all()
+    assert ((hi + lo - x).abs() < 2.0 ** -21 * x.abs()).all()
+    tie = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11)])
+    assert _tf32(tie).tolist() == [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10)]
+
+
+def test_split_tf32_arithmetic_meets_f32_gate():
+    """Three TF32 products per split product (lo.lo dropped) keep the
+    kernel's f32 output within the f32 tolerance (rtol/atol 2e-5) of the
+    JAX oracle at stablelm's heads."""
+    q, k, v, want = _stablelm_heads_f32()
+    got = _emulate_sm90_f32(q, k, v, causal=True, split=True)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+def test_one_tf32_product_breaks_the_f32_gate():
+    """One TF32 product per product, as wgmma or mma.sync take f32 by
+    default, puts most outputs outside that gate (0.595 of them here):
+    the reason the kernel runs each product three times."""
+    q, k, v, want = _stablelm_heads_f32()
+    got = _emulate_sm90_f32(q, k, v, causal=True, split=False).numpy()
+    outside = np.abs(got - want) > 2e-5 + 2e-5 * np.abs(want)
+    assert outside.mean() > 0.5
