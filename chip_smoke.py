@@ -8,15 +8,16 @@ and the CUDA toolkit:
 
 Phases, each printed as it runs:
 
-1. build   — compile ``src/repro_torch/kernels/csrc/*.cu`` (eight
-             sources: the five kernels, flash attention having a
-             CUDA-core source and two tensor-core ones, bf16 and f32,
-             and an empty kernel that times the launch floor; one nvcc
-             each, all started together) for sm_90a; print the build
-             time, ptxas' registers and shared memory per kernel, the
-             count of tensor-core instructions (HGMMA for wgmma, HMMA
-             for mma.sync) in each tensor-core flash kernel's SASS
-             (``cuobjdump -sass``; a kernel without HGMMA fails), the SASS
+1. build   — compile ``src/repro_torch/kernels/csrc/*.cu`` (seven
+             sources: the five kernels, flash attention having two
+             tensor-core sources, bf16 and f32, and an empty kernel
+             that times the launch floor; one nvcc each, all started
+             together) for sm_90a; print the build time, ptxas'
+             registers, spills and shared memory per kernel, the count
+             of tensor-core instructions (HGMMA for wgmma, HMMA for
+             mma.sync) in the SASS of each instantiation (padded
+             head_dim 32 .. 256) of each flash kernel (``cuobjdump
+             -sass``; an instantiation without HGMMA fails), the SASS
              instructions per pair-sample in the inner loop of each
              encounter-screen kernel (its design floor's count), and the
              card's name and power limit.
@@ -91,20 +92,23 @@ Phases, each printed as it runs:
              in bf16 and f32, and phase 7b's forwards' shapes in bf16
              (qwen3-moe B = 1, H = 32, KV = 4, hd = 128; jamba KV = 8,
              hd = 128; musicgen B = 2, H = KV = 24, hd = 64; T = S =
-             2048); a bf16 output within one bf16 rounding of the plain
-             f32 one (rtol 2^-8, atol 1e-5).  Every bf16 shape must go
-             through the bf16 tensor-core kernel (route "sm90") and every
-             f32 one through the split-TF32 one ("sm90_f32"; route
-             counters); each is timed beside the plain version, the
-             CUDA-core kernel's entry of its dtype (called directly on
-             the same inputs and held to the same gate) and, at T = S,
-             F.scaled_dot_product_attention (the yardstick only; in f32
-             its memory-efficient kernel, which runs f32 on the tensor
-             cores, on k and v repeated to H heads outside the timing),
-             with its share of outputs outside the gate, the bound (f32:
-             the split-TF32 products at the TF32 rate, with the
-             CUDA-core rate's figure beside it) and the bf16 kernel's
-             design floor printed.
+             2048); in both dtypes, head_dims past the configs' at T = S
+             = 4096: Gemma-2-9B's heads (H = 16, KV = 8, hd = 256),
+             stablelm's at hd = 156 (zero-padded by the wrapper in bf16;
+             printed beside hd 160), nemotron-4-340b's (H = 96, KV = 8,
+             hd = 192) and Phi-3-mini's (H = KV = 32, hd = 96: the
+             96-wide instantiations), and hd 12, 100 and 200 at the JAX
+             tests' first shape; a bf16 output within one bf16 rounding of the
+             plain f32 one (rtol 2^-8, atol 1e-5).  Every bf16 shape must
+             go through the bf16 tensor-core kernel (route "sm90") and
+             every f32 one through the split-TF32 one ("sm90_f32"; route
+             counters); each is timed beside the plain version and, at T
+             = S, F.scaled_dot_product_attention (the yardstick only; in
+             f32 its memory-efficient kernel, which runs f32 on the
+             tensor cores, on k and v repeated to H heads outside the
+             timing), with its share of outputs outside the gate, the
+             bound (f32: the split-TF32 products at the TF32 rate) and
+             the bf16 kernel's design floor printed.
 7. lm      — stablelm-12b at full width and depth (40 layers, 12.1 B
              parameters in bf16, random from a seed) on the card: forward
              on 2 x 2048 tokens with attention_impl "flash" (the flash
@@ -120,10 +124,9 @@ Phases, each printed as it runs:
              seed), on phase 7's tokens: forward with "flash" (the
              counters zeroed just before and read just after: 40
              launches, all on the sm90_f32 route) and "xla", logits
-             within 1e-3 of max|xla|; the same flash forward with f32
-             sent to the CUDA-core kernel (40 launches there, the same
-             gate); tokens/s and peak memory of each; each flash forward
-             profiled once (device time: f32 GEMMs, flash, the rest).
+             within 1e-3 of max|xla|; tokens/s and peak memory of each;
+             the flash forward profiled once (device time: f32 GEMMs,
+             flash, the rest).
 7b. arms   — the LM's other arms at full width, random bf16 weights from
              a seed, one model at a time (the previous one freed):
              qwen3-moe-30b-a3b (48 MoE layers, 128 experts, top 8; 61.1
@@ -247,7 +250,6 @@ non-zero before that line is printed.
 
 from __future__ import annotations
 
-import contextlib
 import json
 import math
 import os
@@ -409,6 +411,20 @@ SUBLAYER_BF16_GATE = {"moe": LM_REL_GATE, "mamba": LM_REL_GATE,
 FLASH_ARMS_SHAPES = ((1, 32, 4, LM_T, LM_T, 128, True),
                      (1, 32, 8, LM_T, LM_T, 128, True),
                      (2, 24, 24, LM_T, LM_T, 64, True))
+# And, in both dtypes, head_dims past the configs' at T = S = 4096:
+# Gemma-2-9B's heads (hd 256, 16 query and 8 KV heads: the widest the
+# kernels take), stablelm-12b's at hd 156 (not a multiple of 8: the
+# wrapper zero-pads bf16 to 160; beside phase 6's hd 160 row) and
+# nemotron-4-340b's (hd 192, 96 heads, KV 8), Phi-3-mini's (hd 96, 32
+# query and 32 KV heads: the one shape that times the 96-wide
+# instantiations); and hd 12, 100 and 200 (the last padded to 224 inside
+# the kernels) at the JAX tests' first shape.
+FLASH_WIDE_SHAPES = ((1, 16, 8, 4096, 4096, 256, True),
+                     (1, 32, 8, 4096, 4096, 156, True),
+                     (1, 96, 8, 4096, 4096, 192, True),
+                     (1, 32, 32, 4096, 4096, 96, True))
+FLASH_PADDED_SHAPES = tuple((1, 4, 2, 256, 256, hd, True)
+                            for hd in (12, 100, 200))
 # Phase 10: training.  (a) minicpm-2b at full width (bf16 weights, AdamW
 # with f32 moments, remat "nothing", cosine lr with 2 warm-up steps),
 # TRAIN_B x TRAIN_T tokens a step from a SelfScheduledLoader over
@@ -571,23 +587,32 @@ def phase_build() -> tuple[str, dict]:
     for source, name, text in found:
         say("build", f"{source} {names.get(name, name)}: ptxas{text}")
     n = len(_build._sources())
-    if n != 8 or "flash_attention_f32_sm90.cu" not in log:
-        raise AssertionError(f"expected eight kernel sources, built {n}")
-    # Tensor-core instructions in each tensor-core flash kernel's SASS:
-    # wgmma is HGMMA, mma.sync HMMA.  Both kernels are built on wgmma, so
-    # HGMMA must be there; HMMA is printed only.
+    if n != 7 or "flash_attention_f32_sm90.cu" not in log:
+        raise AssertionError(f"expected seven kernel sources, built {n}")
+    # Tensor-core instructions in the SASS of each instantiation (one per
+    # padded head_dim, 32 .. 256) of each flash kernel: wgmma is HGMMA,
+    # mma.sync HMMA.  Both kernels are built on wgmma, so every
+    # instantiation must hold HGMMA; HMMA is printed only.
     for source, kernel in (
             ("flash_attention_sm90.cu", "flash_attention_sm90_kernel"),
             ("flash_attention_f32_sm90.cu",
              "flash_attention_f32_sm90_kernel")):
-        counts = {op: sass_count(_build.library_path(), kernel, op)
+        counts = {op: sass_counts(_build.library_path(), kernel, op)
                   for op in ("HGMMA", "HMMA")}
-        say("build", f"{source}: {counts['HGMMA']} HGMMA and "
-                     f"{counts['HMMA']} HMMA instructions in its kernels' "
-                     f"SASS (cuobjdump -sass)")
-        if not counts["HGMMA"]:
-            raise AssertionError(f"{source} has no HGMMA: its products do "
-                                 f"not run on wgmma")
+        names = demangle(counts["HGMMA"])
+        width = {m: int(re.search(r"\((?:int\))?(\d+)", names[m]).group(1))
+                 for m in names}
+        if sorted(width.values()) != [32, 64, 96, 128, 160, 192, 224, 256]:
+            raise AssertionError(f"{source}: instantiations "
+                                 f"{sorted(width.values())}")
+        for mangled in sorted(names, key=width.get):
+            hgmma = counts["HGMMA"][mangled]
+            say("build", f"{source} {names[mangled]}: {hgmma} HGMMA and "
+                         f"{counts['HMMA'][mangled]} HMMA instructions in "
+                         f"its SASS (cuobjdump -sass)")
+            if not hgmma:
+                raise AssertionError(f"{names[mangled]} has no HGMMA: its "
+                                     f"products do not run on wgmma")
     floor = screen_sass_per_pair_sample(_build.library_path())
     for regime, f in sorted(floor.items()):
         say("build", f"encounter_screen.cu {regime}-K kernel: "
@@ -612,17 +637,18 @@ def demangle(mangled) -> dict:
     return dict(zip(mangled, out.splitlines()))
 
 
-def sass_count(library, kernel: str, opcode: str) -> int:
-    """``opcode`` instructions in the SASS of the kernels whose mangled
-    name holds ``kernel``."""
+def sass_counts(library, kernel: str, opcode: str) -> dict:
+    """``opcode`` instructions in the SASS of each kernel whose mangled
+    name holds ``kernel``, by mangled name."""
     cuobjdump = (shutil.which("cuobjdump")
                  or "/usr/local/cuda/bin/cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(library)],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
-    return sum(len(re.findall(rf"\b{opcode}\b", fn))
-               for fn in sass.split("Function : ")
-               if fn.startswith("_") and kernel in fn.split("\n", 1)[0])
+    return {fn.split("\n", 1)[0].strip():
+            len(re.findall(rf"\b{opcode}\b", fn))
+            for fn in sass.split("Function : ")
+            if fn.startswith("_") and kernel in fn.split("\n", 1)[0]}
 
 
 def screen_sass_per_pair_sample(library) -> dict:
@@ -1753,9 +1779,8 @@ def flash_bound(B, H, KV, T, S, hd, causal, itemsize, ops_per_s,
 
 def phase_flash() -> dict:
     """The flash kernels against their plain version at every shape, each
-    through the route its dtype and head_dim select, timed beside the
-    plain version, at T == S SDPA, and for bf16 the CUDA-core kernel's
-    bf16 entry on the same inputs."""
+    through the route its dtype selects (counted), timed beside the plain
+    version and, at T == S, SDPA."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as flash_mod
@@ -1763,20 +1788,22 @@ def phase_flash() -> dict:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(13)
+    both = (torch.bfloat16, torch.float32)
     cases = [(shape, torch.float32) for shape in FLASH_TEST_SHAPES]
     cases.append((FLASH_BF16_SHAPE, torch.bfloat16))
     cases += [((1, 32, 8, T, T, 160, True), dt) for T in FLASH_LM_T
-              for dt in (torch.bfloat16, torch.float32)]
-    cases += [(FLASH_MAIN_PATH_SHAPE, dt)
-              for dt in (torch.bfloat16, torch.float32)]
+              for dt in both]
+    cases += [(FLASH_MAIN_PATH_SHAPE, dt) for dt in both]
     cases += [(shape, torch.bfloat16) for shape in FLASH_ARMS_SHAPES]
+    cases += [(shape, dt) for shape in FLASH_WIDE_SHAPES + FLASH_PADDED_SHAPES
+              for dt in both]
     res = {"per_shape": {}, "max_abs_err": 0.0}
     for (B, H, KV, T, S, hd, causal), dt in cases:
         q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
                    for shape in ((B, H, T, hd), (B, KV, S, hd),
                                  (B, KV, S, hd)))
         bf16 = dt == torch.bfloat16
-        route = "sm90" if bf16 else "sm90_f32"
+        route = flash_mod.route(dt, hd)
         before = dict(flash_mod.launches_by_route)
         got = flash_mod.flash_attention(q, k, v, causal=causal)
         want = ref.flash_attention_ref(q, k, v, causal=causal)
@@ -1785,9 +1812,11 @@ def phase_flash() -> dict:
                f"{'causal' if causal else 'full'} {str(dt)[6:]}"
         routed = {r: flash_mod.launches_by_route[r] - before[r]
                   for r in before}
-        if routed != {r: int(r == route) for r in before}:
+        want_route = "sm90" if bf16 else "sm90_f32"
+        if route != want_route or routed != {r: int(r == route)
+                                             for r in before}:
             raise AssertionError(f"flash_attention at {name} went through "
-                                 f"{routed}, expected route {route}")
+                                 f"{routed}, expected route {want_route}")
         rtol, atol = ((FLASH_BF16_RTOL, FLASH_BF16_ATOL) if bf16
                       else (FLASH_F32_TOL, FLASH_F32_TOL))
 
@@ -1811,18 +1840,6 @@ def phase_flash() -> dict:
                "plain_ms": device_ms(lambda: ref.flash_attention_ref(
                    q, k, v, causal=causal), runs=runs),
                "library_ms": None}
-        # The CUDA-core kernel's entry for this dtype (the route of every
-        # input before the tensor-core kernels), called directly on the
-        # same inputs and held to the same gate.
-        old = flash_mod._launch("cuda_core", q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        row["cuda_core_max_abs_err"], old_ok, _ = gate(old)
-        if not old_ok:
-            raise AssertionError(f"the CUDA-core entry at {name} disagrees "
-                                 f"with the plain version")
-        del old
-        row["cuda_core_ms"] = device_ms(lambda: flash_mod._launch(
-            "cuda_core", q, k, v, causal=causal), runs=runs)
         if T == S and bf16:
             lib = F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                                  enable_gqa=True)
@@ -1862,22 +1879,14 @@ def phase_flash() -> dict:
         else:
             # f32-accurate products run fastest on the tensor cores as
             # split TF32: both products three times, 12 hd per kept pair
-            # at the TF32 rate.  The CUDA cores' 4 hd per pair at the f32
-            # rate, the bound before the tensor-core kernel, is kept
-            # beside it.
+            # at the TF32 rate.
             row["bound_ms"], row["bound_by"] = flash_bound(
                 B, H, KV, T, S, hd, causal, q.element_size(),
                 TF32_OPS_PER_S, ops_per_pair=12 * hd)
-            row["cuda_core_bound_ms"], _ = flash_bound(
-                B, H, KV, T, S, hd, causal, q.element_size(),
-                F32_OPS_PER_S)
-            floor = (f", CUDA-core bound "
-                     f"{row['cuda_core_bound_ms']:.4f} ms")
+            floor = ""
         lib = ("-" if row["library_ms"] is None
                else f"{row['library_ms']:.4f}")
-        extra = (f", CUDA-core {str(dt)[6:]} entry "
-                 f"{row['cuda_core_ms']:.4f} ms "
-                 f"({row['cuda_core_ms'] / row['ms']:.1f}x)" + floor)
+        extra = floor
         if row["library_ms"] is not None:
             extra += (f"; library {row['library_ms'] / row['ms']:.2f}x "
                       f"the kernel's time")
@@ -1892,7 +1901,16 @@ def phase_flash() -> dict:
         res["per_shape"][name] = row
         res["max_abs_err"] = max(res["max_abs_err"], err)
         del q, k, v, got, want
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
+    # A head_dim that is not a multiple of 8 beside its neighbour: hd 156
+    # (zero-padded to 160, the copies timed with the kernel) against hd
+    # 160 at stablelm's heads, on each route.
+    for dt in ("bfloat16", "float32"):
+        pad, full = (res["per_shape"][
+            f"B=1 H=32 KV=8 T=4096 S=4096 hd={hd} causal {dt}"]["ms"]
+            for hd in (156, 160))
+        say("flash", f"hd 156 / hd 160 at stablelm's heads, {dt}: "
+                     f"{pad:.4f} / {full:.4f} ms = {pad / full:.3f}x")
     return res
 
 
@@ -2618,8 +2636,7 @@ def phase_lm() -> dict:
               f"{launches} by route {by_route}; max|flash - xla| / max|xla| "
               f"{rel:.3g} (gate {LM_REL_GATE}); finite {finite}")
     if launches != cfg.n_layers or by_route != {"sm90": cfg.n_layers,
-                                                "sm90_f32": 0,
-                                                "cuda_core": 0}:
+                                                "sm90_f32": 0}:
         raise AssertionError(f"flash forward launched the kernel {launches} "
                              f"times ({by_route}), expected "
                              f"{cfg.n_layers}, all on the sm90 route")
@@ -2670,28 +2687,11 @@ def phase_lm() -> dict:
             "forward_flash_share": flash_share}
 
 
-@contextlib.contextmanager
-def f32_flash_route(name: str):
-    """Send f32 flash inputs to the route ``name`` while inside (the
-    route rule of every other dtype unchanged): phase 7a's CUDA-core
-    forward, the f32 route before the split-TF32 kernel."""
-    import torch
-    from repro_torch.kernels import flash_attention as flash_mod
-    rule = flash_mod.route
-    flash_mod.route = (lambda dtype, hd: name if dtype == torch.float32
-                       else rule(dtype, hd))
-    try:
-        yield
-    finally:
-        flash_mod.route = rule
-
-
 def phase_lm_f32() -> dict:
     """stablelm-12b with f32 parameters and activations at full width and
     depth: forward with the flash kernel (the split-TF32 route, 40
-    launches) and with xla, logits compared; the same flash forward with
-    f32 sent to the CUDA-core kernel; each flash forward profiled once
-    (device time by kind of kernel)."""
+    launches) and with xla, logits compared; the flash forward profiled
+    once (device time by kind of kernel)."""
     import dataclasses
     import numpy as np
     import torch
@@ -2758,67 +2758,42 @@ def phase_lm_f32() -> dict:
     torch.cuda.reset_peak_memory_stats()
     lx, xla_s = timed_forward(cfg)
     peak_xla = torch.cuda.max_memory_allocated()
-    with f32_flash_route("cuda_core"):
-        lc, cc_s, cc_launches, cc_by_route, peak_cc = counted_forward()
-    finite = all(bool(torch.isfinite(x).all()) for x in (lf, lx, lc))
-    shapes = {tuple(x.shape) for x in (lf, lx, lc)}
-    rel, rel_cc, rel_new_cc = (rel_diff(lf, lx), rel_diff(lc, lx),
-                               rel_diff(lf, lc))
-    del lf, lx, lc
+    finite = all(bool(torch.isfinite(x).all()) for x in (lf, lx))
+    shapes = {tuple(x.shape) for x in (lf, lx)}
+    rel = rel_diff(lf, lx)
+    del lf, lx
     res = {"params": n_params, "gb": n_bytes / 1e9, "launches": launches,
            "launches_by_route": by_route,
            "forward_tokens_per_s": n_tok / flash_s,
            "forward_xla_tokens_per_s": n_tok / xla_s,
-           "peak_gb": peak_flash / 1e9, "flash_xla_rel": rel,
-           "cuda_core": {"launches_by_route": cc_by_route,
-                         "forward_tokens_per_s": n_tok / cc_s,
-                         "peak_gb": peak_cc / 1e9, "flash_xla_rel": rel_cc},
-           "flash_vs_cuda_core_rel": rel_new_cc}
+           "peak_gb": peak_flash / 1e9, "flash_xla_rel": rel}
     say("lm-f32", f"forward B={LM_B} T={LM_T}: flash (sm90_f32) "
                   f"{flash_s:.3f}s ({n_tok / flash_s:.1f} tokens/s, peak "
                   f"{peak_flash / 1e9:.2f} GB), xla {xla_s:.3f}s "
                   f"({n_tok / xla_s:.1f} tokens/s, peak {peak_xla / 1e9:.2f}"
-                  f" GB), flash on the CUDA-core route {cc_s:.3f}s "
-                  f"({n_tok / cc_s:.1f} tokens/s, peak {peak_cc / 1e9:.2f} "
-                  f"GB), first (xla, warm-up) {warm_s:.3f}s; flash launches "
-                  f"{launches} by route {by_route}, CUDA-core forward "
-                  f"{cc_by_route}; finite {finite}")
-    say("lm-f32", f"max|flash - xla| / max|xla|: sm90_f32 {rel:.3g}, "
-                  f"CUDA-core {rel_cc:.3g} (gate {LM_F32_REL_GATE}); "
-                  f"sm90_f32 vs CUDA-core {rel_new_cc:.3g}")
+                  f" GB), first (xla, warm-up) {warm_s:.3f}s; flash launches "
+                  f"{launches} by route {by_route}; finite {finite}")
+    say("lm-f32", f"max|flash - xla| / max|xla|: {rel:.3g} (gate "
+                  f"{LM_F32_REL_GATE})")
     n = cfg.n_layers
-    if launches != n or by_route != {"sm90": 0, "sm90_f32": n,
-                                     "cuda_core": 0}:
+    if launches != n or by_route != {"sm90": 0, "sm90_f32": n}:
         raise AssertionError(f"f32 flash forward launched the kernel "
                              f"{launches} times ({by_route}), expected {n}, "
                              f"all on the sm90_f32 route")
-    if cc_by_route != {"sm90": 0, "sm90_f32": 0, "cuda_core": n}:
-        raise AssertionError(f"the CUDA-core f32 forward went through "
-                             f"{cc_by_route}")
     if not finite or shapes != {(LM_B, LM_T, cfg.vocab_size)}:
         raise AssertionError(f"f32 forward logits: shapes {shapes}, finite "
                              f"{finite}")
-    if not (rel < LM_F32_REL_GATE and rel_cc < LM_F32_REL_GATE):
-        raise AssertionError(f"f32 flash and xla logits differ: sm90_f32 "
-                             f"{rel}, CUDA-core {rel_cc}")
+    if not rel < LM_F32_REL_GATE:
+        raise AssertionError(f"f32 flash and xla logits differ: {rel}")
 
-    # Where each f32 flash forward's device time goes, by kind of kernel.
-    for label, key in (("sm90_f32", None), ("CUDA-core", "cuda_core")):
-        if key is None:
-            prof = profiled_forward()
-            res.update(profile=prof, forward_flash_share=prof["flash_share"])
-        else:
-            with f32_flash_route(key):
-                prof = profiled_forward()
-            res[key].update(profile=prof,
-                            forward_flash_share=prof["flash_share"])
-        say("lm-f32", f"profiled flash forward, {label} route: "
-                      f"{prof['wall_ms']:.1f} ms wall, device busy "
-                      f"{prof['busy_ms']:.1f} ms (idle share "
-                      f"{1 - prof['busy_ms'] / prof['wall_ms']:.4f}); by "
-                      f"kind: " + ", ".join(
-                          f"{k} {v:.1f} ms ({v / prof['busy_ms']:.4f})"
-                          for k, v in prof["split_ms"].items()))
+    # Where the f32 flash forward's device time goes, by kind of kernel.
+    prof = profiled_forward()
+    res.update(profile=prof, forward_flash_share=prof["flash_share"])
+    say("lm-f32", f"profiled flash forward: {prof['wall_ms']:.1f} ms wall, "
+                  f"device busy {prof['busy_ms']:.1f} ms (idle share "
+                  f"{1 - prof['busy_ms'] / prof['wall_ms']:.4f}); by kind: "
+                  + ", ".join(f"{k} {v:.1f} ms ({v / prof['busy_ms']:.4f})"
+                              for k, v in prof["split_ms"].items()))
     del params
     torch.cuda.empty_cache()
     return res
@@ -3032,8 +3007,7 @@ def phase_lm_arms() -> dict:
                     f"token rows at or past {LM_REL_GATE}: {rows_out:.5f}); "
                     f"finite {finite}")
         gate(launches == n_attn and by_route == {"sm90": n_attn,
-                                                 "sm90_f32": 0,
-                                                 "cuda_core": 0},
+                                                 "sm90_f32": 0},
              f"{name}: flash forward launched the kernel {launches} times "
              f"({by_route}), expected {n_attn}, all on the sm90 route")
         gate(finite and shape == (B, LM_T, cfg.vocab_size),
@@ -4040,9 +4014,6 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": os.path.relpath(_build.SRC_DIR / "flash_attention_sm90.cu",
                                   HERE),
-        "cuda_core_source": os.path.relpath(
-            _build.SRC_DIR / "flash_attention.cu", HERE),
-        "cuda_core_ms": top["cuda_core_ms"],
         "launches_by_route": lm["launches_by_route"],
         "replaces": "src/repro/kernels/flash_attention.py:124",
         "launches": lm["launches"],
@@ -4061,8 +4032,6 @@ def main() -> int:
         "f32_plain_ms": f32["plain_ms"],
         "f32_library_ms": f32["library_ms"],
         "f32_bound_ms": f32["bound_ms"],
-        "cuda_core_f32_bound_ms": f32["cuda_core_bound_ms"],
-        "cuda_core_f32_ms": f32["cuda_core_ms"],
         "lm_f32_forward_tokens_per_s": lm_f32["forward_tokens_per_s"],
         "lm_f32_forward_flash_share": lm_f32["forward_flash_share"],
         "launches_lm_f32": lm_f32["launches_by_route"],

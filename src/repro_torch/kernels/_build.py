@@ -31,13 +31,11 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # -fmad=false keeps products out of fused adds, as the plain versions
-# compute them, for the kernels held bitwise to them.  The sources named
-# here are held to a tolerance instead and may fuse: the CUDA-core flash
-# kernel runs about 1.2x faster so on an H100 (kernels/fmad_ab.py times
-# both); the tensor-core ones are held to the same tolerance (there the
-# flag decides little: their exponent argument is an explicit fmaf).
-FMA_SOURCES = ("flash_attention.cu", "flash_attention_sm90.cu",
-               "flash_attention_f32_sm90.cu")
+# compute them, for the kernels held bitwise to them.  The flash sources
+# are held to a tolerance instead and may fuse (the flag decides little
+# there: their products run on the tensor cores, and their exponent
+# argument is an explicit fmaf).
+FMA_SOURCES = ("flash_attention_sm90.cu", "flash_attention_f32_sm90.cu")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -52,14 +50,10 @@ SIGNATURES = {
     "dynamic_rates_f32": (_P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _P),
     "encounter_screen_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _F, _F, _P),
-    "flash_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
-                            _P),
-    "flash_attention_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
-                             _P),
     "flash_attention_bf16_sm90": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                  _F, _P),
+                                  _I, _F, _P),
     "flash_attention_f32_sm90": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                 _F, _P),
+                                 _I, _F, _P),
     "launch_floor": (_I, _I, _I, _P),
 }
 

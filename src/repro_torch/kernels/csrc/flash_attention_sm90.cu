@@ -2,10 +2,12 @@
 // q (B,H,T,hd), k/v (B,KV,S,hd) bf16 -> (B,H,T,hd) bf16, f32 inside.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py (_kernel,
-// lines 44-93; pl.pallas_call at line 124) for bf16 inputs with hd % 8 ==
-// 0 and hd <= 192; csrc/flash_attention_f32_sm90.cu serves f32 inputs of
-// those head_dims (as split TF32) and csrc/flash_attention.cu any other
-// head_dim.
+// lines 44-93; pl.pallas_call at line 124) for bf16 inputs of every
+// head_dim from 1 to 256; csrc/flash_attention_f32_sm90.cu serves f32
+// inputs (as split TF32).  The kernel takes hd % 8 == 0 (TMA's 16-byte
+// row stride); the wrapper (kernels/flash_attention.py) zero-pads any
+// other head_dim to the next multiple of 8 and passes the true hd's
+// scale, so the extra columns add exact zeros to every score.
 //
 // Bound: operations.  Each (query, key) pair the mask keeps costs 2*hd
 // flops for the score and 2*hd for the weighted sum (4*hd at 989 TFLOP/s
@@ -14,16 +16,32 @@
 //
 // Design.  One CTA per (b, h, 128-row q tile), all on grid.x with every
 // head's heaviest causal tile first (neighbouring CTAs then share a kv
-// head in L2).  Three warpgroups:
-//  - the producer (warpgroup 0; one thread) gives up registers
-//    (setmaxnreg 24), loads the q tile once by TMA and streams 64-key
-//    tiles of k and v through a 3-stage ring in shared memory, each
-//    stage guarded by k-full, v-full and empty mbarriers;
-//  - two consumer warpgroups (setmaxnreg 240) own 64 q rows each.  Per
-//    key tile: S = q k^T by wgmma from shared memory (m64n64k16, both
-//    operands K-major, f32 accumulators), then the softmax in registers
-//    on the accumulator layout, then O += P v by wgmma with P from
-//    registers and v MN-major in shared memory (transpose bit set).
+// head in L2).  Two consumer warpgroups and a producer warp, 288 threads:
+//  - the producer (warp 8; one thread) loads the q tile once by TMA and
+//    streams key tiles of k and v through a ring in shared memory, each
+//    stage guarded by k-full, v-full and empty mbarriers: 64 keys in 3
+//    stages up to hd 192, 32 keys in 4 stages above (key_tile,
+//    ring_stages);
+//  - two consumer warpgroups (warps 0-7) own 64 q rows each.  Per
+//    key tile: S = q k^T by wgmma from shared memory (m64n64k16 or
+//    m64n32k16, both operands K-major, f32 accumulators), then the
+//    softmax in registers on the accumulator layout, then O += P v by
+//    wgmma with P from registers and v MN-major in shared memory
+//    (transpose bit set).
+// Registers bound the widest head_dims: O alone takes hd / 2 f32
+// registers a consumer thread (128 at 256), S kBK / 2 and P's hi and lo
+// kBK / 2 more, and ptxas gives the consumers 168 registers a thread
+// (ptxas -v), at 288 threads as it did at 384 with setmaxnreg handing
+// them 240 at run time (so the producer is one warp, and no setmaxnreg
+// is issued).  The 32-key tile above hd 192 halves S and P (32
+// registers in place of 64); even so hd 256 spills, and hd 192 (PERF.md
+// records the bytes and times).  A block of 256 threads, thread 0 issuing
+// the loads between its own products, gets 255 registers and spills
+// nothing, but ties each warpgroup to the other's pace: on the H100 it
+// ran 1-30 % slower at hd 128 to 200, and 7-10 % faster at hd 256 and
+// 64 (PERF.md); one block is kept for every width.  The ring of four
+// stages of 32 keys keeps 128 keys in flight within the 227 KB of shared
+// memory a block may use.
 // Tiles strictly above the causal diagonal are never loaded; a consumer
 // whose 64 rows see none of a loaded tile skips its products.
 //
@@ -31,15 +49,17 @@
 // columns (TMA box 32 x rows, CU_TENSOR_MAP_SWIZZLE_64B; wgmma layout
 // B64).  hd = 160 is 5 atoms, so nothing is wasted there (a 128-byte
 // swizzle would need 64-column atoms and 20 % zero padding at 160); other
-// head_dims round up to a multiple of 32 (24 -> 32, 40 -> 64), TMA fills
-// the columns past hd with zeros, and the extra output columns are not
-// written.  At hd 192: q 48 KB + 3 stages x (k + v) 48 KB = 192 KB.
+// head_dims round up to a multiple of 32 (24 -> 32, 40 -> 64, 200 ->
+// 224), TMA fills the columns past hd with zeros, and the extra output
+// columns are not written.  At hd 192: q 48 KB + 3 stages x (k + v) 48 KB
+// = 192 KB; at hd 256: q 64 KB + 4 stages x (k + v) 32 KB = 192 KB (three
+// stages of 64 keys would need 256 KB).
 //
 // Numerics.  bf16 x bf16 products are exact in f32, so S from the raw
 // bf16 q and k with f32 accumulation, scaled by hd^-0.5 afterwards,
 // differs from the TPU kernel's (q * scale) k^T by f32 rounding alone.
-// The softmax is the f32 recurrence of csrc/flash_attention.cu: masked
-// scores are -inf, a row that has seen no valid key keeps m = 0 for its
+// The softmax is the plain version's f32 recurrence: masked scores are
+// -inf, a row that has seen no valid key keeps m = 0 for its
 // exponentials, l sums the f32 p, acc is rescaled by exp(m_prev - m_new),
 // and a row whose l = 0 is written as 0 (a NaN row stays NaN).  P itself
 // is not rounded once to bf16 (that breaks the gate of one bf16 rounding
@@ -63,11 +83,17 @@
 namespace {
 
 constexpr int kBQ = 128;          // query rows per CTA (2 x 64)
-constexpr int kBK = 64;           // keys per tile
-constexpr int kStages = 3;        // k/v ring depth
 constexpr int kAtom = 32;         // bf16 columns per 64-byte swizzle row
-constexpr int kThreads = 384;     // producer + two consumer warpgroups
-constexpr int kMaxHeadDim = 192;
+constexpr int kThreads = 288;     // two consumer warpgroups + producer warp
+constexpr int kMaxHeadDim = 256;
+
+// Keys per k/v tile and ring depth for a padded head_dim (see Design).
+__host__ __device__ constexpr int key_tile(int hdp) {
+  return hdp <= 192 ? 64 : 32;
+}
+__host__ __device__ constexpr int ring_stages(int hdp) {
+  return hdp <= 192 ? 3 : 4;
+}
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr long long kHangCycles = 1LL << 34;   // ~10 s at 1.7 GHz
 
@@ -149,6 +175,20 @@ __device__ __forceinline__ void fence_regs(float* d) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
+// d (m64 x n32, f32) {+}= A (smem, K-major) * B (smem, K-major)^T.
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+
 // d (m64 x n64, f32) {+}= A (smem, K-major) * B (smem, K-major)^T.
 __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db,
                                              int scale_d) {
@@ -162,6 +202,13 @@ __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db,
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
+                                         int scale_d) {
+  if constexpr (N == 32) wgmma_ss_n32(d, da, db, scale_d);
+  else wgmma_ss_n64(d, da, db, scale_d);
 }
 
 // d (m64 x n32, f32) += A (registers, bf16 pairs) * B (smem, MN-major).
@@ -272,6 +319,57 @@ __device__ __forceinline__ void wgmma_rs_n192(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (m64 x n224, f32) += A (registers, bf16 pairs) * B (smem, MN-major).
+__device__ __forceinline__ void wgmma_rs_n224(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %117, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n224k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111}, "
+      "{%112, %113, %114, %115}, %116, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (m64 x n256, f32) += A (registers, bf16 pairs) * B (smem, MN-major).
+__device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
@@ -281,7 +379,9 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
   else if constexpr (N == 96) wgmma_rs_n96(d, a, db);
   else if constexpr (N == 128) wgmma_rs_n128(d, a, db);
   else if constexpr (N == 160) wgmma_rs_n160(d, a, db);
-  else wgmma_rs_n192(d, a, db);
+  else if constexpr (N == 192) wgmma_rs_n192(d, a, db);
+  else if constexpr (N == 224) wgmma_rs_n224(d, a, db);
+  else wgmma_rs_n256(d, a, db);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo_col, float hi_col) {
@@ -289,15 +389,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo_col, float hi_col) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// kHdp: head_dim rounded up to a multiple of kAtom (32 .. 192).
+// kHdp: head_dim rounded up to a multiple of kAtom (32 .. 256).
 template <int kHdp>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
                             const __grid_constant__ CUtensorMap k_map,
                             const __grid_constant__ CUtensorMap v_map,
                             __nv_bfloat16* __restrict__ o, int H, int KV,
-                            int T, int S, int hd, int BH, int causal,
+                            int T, int S, int hd_out, int BH, int causal,
                             float scale) {
+  constexpr int kBK = key_tile(kHdp);
+  constexpr int kStages = ring_stages(kHdp);
   constexpr int kChunks = kHdp / kAtom;
   constexpr uint32_t kQBytes = kBQ * kHdp * 2;
   constexpr uint32_t kTileBytes = kBK * kHdp * 2;
@@ -340,10 +442,9 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
   }
   __syncthreads();
 
-  if (threadIdx.x < 128) {
-    // ---- producer warpgroup: one thread issues every TMA load ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
-    if (threadIdx.x == 0) {
+  if (threadIdx.x >= 256) {
+    // ---- producer warp: one thread issues every TMA load ----
+    if (threadIdx.x == 256) {
       const int zkv = b * KV + kvh;
       mbar_expect_tx(q_full, kQBytes);
 #pragma unroll
@@ -367,8 +468,7 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     }
   } else {
     // ---- two consumer warpgroups, 64 q rows each ----
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-    const int ct = threadIdx.x - 128;
+    const int ct = threadIdx.x;
     const int cw = ct >> 7;                  // consumer warpgroup
     const int warp = (ct >> 5) & 3;
     const int lane = ct & 31;
@@ -401,7 +501,7 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
         for (int kk = 0; kk < kHdp / 16; ++kk) {
           const uint32_t col = (kk & 1) * 32;   // bytes into the atom row
-          wgmma_ss_n64(sc,
+          wgmma_ss<kBK>(sc,
                        smem_desc(q_wg + (kk >> 1) * kQChunk + col, 16, 512),
                        smem_desc(k_tile + (kk >> 1) * kKChunk + col, 16, 512),
                        kk > 0);
@@ -512,16 +612,22 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     for (int r = 0; r < 2; ++r) {
       const int t = row0 + 8 * r;
       if (t >= T) continue;
-      __nv_bfloat16* out = o + (static_cast<long long>(bh) * T + t) * hd;
+      __nv_bfloat16* out =
+          o + (static_cast<long long>(bh) * T + t) * hd_out;
       const bool any = l[r] != 0.0f;      // a NaN row stays NaN
 #pragma unroll
       for (int j = 0; j < kHdp / 8; ++j) {
         const int c = 8 * j + col0;
-        if (c < hd) {
+        if (c < hd_out) {
           const float a0 = any ? acc[4 * j + 2 * r] / l[r] : 0.0f;
           const float a1 = any ? acc[4 * j + 2 * r + 1] / l[r] : 0.0f;
-          *reinterpret_cast<__nv_bfloat162*>(out + c) =
-              __floats2bfloat162_rn(a0, a1);
+          if (hd_out % 2 == 0) {          // c + 1 < hd_out, 4-byte aligned
+            *reinterpret_cast<__nv_bfloat162*>(out + c) =
+                __floats2bfloat162_rn(a0, a1);
+          } else {
+            out[c] = __float2bfloat16_rn(a0);
+            if (c + 1 < hd_out) out[c + 1] = __float2bfloat16_rn(a1);
+          }
         }
       }
     }
@@ -572,15 +678,17 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int hd,
 
 template <int kHdp>
 int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
-           __nv_bfloat16* o, int B, int H, int KV, int T, int S, int hd,
-           int causal, float scale, cudaStream_t stream) {
+           __nv_bfloat16* o, int B, int H, int KV, int T, int S,
+           int hd_out, int causal, float scale, cudaStream_t stream) {
   const long long q_tiles = (T + kBQ - 1) / kBQ;
   const long long blocks = q_tiles * B * H;
   if (blocks > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
+  constexpr int kStages = ring_stages(kHdp);
   const size_t smem = 1024 + static_cast<size_t>(kBQ) * kHdp * 2 +
-                      2 * kStages * static_cast<size_t>(kBK) * kHdp * 2 +
+                      2 * kStages * static_cast<size_t>(key_tile(kHdp)) *
+                          kHdp * 2 +
                       8 * (1 + 3 * kStages);
   auto kernel = flash_attention_sm90_kernel<kHdp>;
   const cudaError_t err = cudaFuncSetAttribute(
@@ -588,18 +696,22 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      qm, km, vm, o, H, KV, T, S, hd, B * H, causal, scale);
+      qm, km, vm, o, H, KV, T, S, hd_out, B * H, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// q, k, v have rows of hd (a multiple of 8, padded with zero columns
+// where the head_dim is not); o has rows of hd_out <= hd, the head_dim,
+// and gets the first hd_out columns.
 extern "C" int flash_attention_bf16_sm90(const void* q, const void* k,
                                          const void* v, void* o, int B, int H,
                                          int KV, int T, int S, int hd,
-                                         int causal, float scale,
+                                         int hd_out, int causal, float scale,
                                          void* stream) {
-  if (hd < 8 || hd > kMaxHeadDim || hd % 8 != 0 || KV < 1 || H % KV != 0 ||
+  if (hd < 8 || hd > kMaxHeadDim || hd % 8 != 0 || hd_out < 1 ||
+      hd_out > hd || KV < 1 || H % KV != 0 ||
       ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) &
        15) != 0) {
@@ -608,25 +720,27 @@ extern "C" int flash_attention_bf16_sm90(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B == 0 || H == 0 || T == 0) return 0;
   if (S == 0) {                   // no key at all: every row is 0
-    cudaMemsetAsync(o, 0, static_cast<size_t>(B) * H * T * hd * 2, st);
+    cudaMemsetAsync(o, 0, static_cast<size_t>(B) * H * T * hd_out * 2, st);
     return static_cast<int>(cudaGetLastError());
   }
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const int hdp = (hd + kAtom - 1) / kAtom * kAtom;
   CUtensorMap qm, km, vm;
   if (!make_map(encode, &qm, q, hd, T, B * H, kBQ) ||
-      !make_map(encode, &km, k, hd, S, B * KV, kBK) ||
-      !make_map(encode, &vm, v, hd, S, B * KV, kBK)) {
+      !make_map(encode, &km, k, hd, S, B * KV, key_tile(hdp)) ||
+      !make_map(encode, &vm, v, hd, S, B * KV, key_tile(hdp))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto* out = static_cast<__nv_bfloat16*>(o);
-  const int hdp = (hd + kAtom - 1) / kAtom * kAtom;
   switch (hdp) {
-    case 32: return launch<32>(qm, km, vm, out, B, H, KV, T, S, hd, causal, scale, st);
-    case 64: return launch<64>(qm, km, vm, out, B, H, KV, T, S, hd, causal, scale, st);
-    case 96: return launch<96>(qm, km, vm, out, B, H, KV, T, S, hd, causal, scale, st);
-    case 128: return launch<128>(qm, km, vm, out, B, H, KV, T, S, hd, causal, scale, st);
-    case 160: return launch<160>(qm, km, vm, out, B, H, KV, T, S, hd, causal, scale, st);
-    default: return launch<192>(qm, km, vm, out, B, H, KV, T, S, hd, causal, scale, st);
+    case 32: return launch<32>(qm, km, vm, out, B, H, KV, T, S, hd_out, causal, scale, st);
+    case 64: return launch<64>(qm, km, vm, out, B, H, KV, T, S, hd_out, causal, scale, st);
+    case 96: return launch<96>(qm, km, vm, out, B, H, KV, T, S, hd_out, causal, scale, st);
+    case 128: return launch<128>(qm, km, vm, out, B, H, KV, T, S, hd_out, causal, scale, st);
+    case 160: return launch<160>(qm, km, vm, out, B, H, KV, T, S, hd_out, causal, scale, st);
+    case 192: return launch<192>(qm, km, vm, out, B, H, KV, T, S, hd_out, causal, scale, st);
+    case 224: return launch<224>(qm, km, vm, out, B, H, KV, T, S, hd_out, causal, scale, st);
+    default: return launch<256>(qm, km, vm, out, B, H, KV, T, S, hd_out, causal, scale, st);
   }
 }

@@ -869,7 +869,9 @@ def test_flash_attention_grid_past_65535_blocks(dev):
                                rtol=2e-5, atol=2e-5)
 
 
-SM90_HEAD_DIMS = (24, 40, 64, 128, 160, 192)
+# The configs' and the JAX tests' head_dims, the widths taken zero-padded
+# (12, 100, 156: not multiples of 8), 200 (padded to 224 inside) and 256.
+SM90_HEAD_DIMS = (12, 24, 40, 64, 100, 128, 156, 160, 192, 200, 256)
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
@@ -878,10 +880,10 @@ SM90_HEAD_DIMS = (24, 40, 64, 128, 160, 192)
 @pytest.mark.parametrize("hd", SM90_HEAD_DIMS)
 def test_flash_attention_sm90_route(dev, hd, T, S, causal):
     """bf16 goes through the tensor-core kernel at every head_dim of the
-    configs and the JAX tests, with T = S, T < S (chunked prefill) and
-    T > S (rows with no key exactly 0), S never a multiple of the 64-key
-    tile, causal and full; each output within one bf16 rounding of the
-    plain f32 output."""
+    configs and the JAX tests, at head_dims the wrapper zero-pads and up
+    to 256, with T = S, T < S (chunked prefill) and T > S (rows with no
+    key exactly 0), S never a multiple of a key tile, causal and full;
+    each output within one bf16 rounding of the plain f32 output."""
     from repro_torch.kernels import flash_attention as flash_mod
     q, k, v = _qkv(dev, 2, 8, 2, T, S, hd, seed=hd + T + S,
                    dtype=torch.bfloat16)
@@ -889,8 +891,7 @@ def test_flash_attention_sm90_route(dev, hd, T, S, causal):
     got = flash_mod.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert flash_mod.launches_by_route == {
-        "sm90": before["sm90"] + 1, "sm90_f32": before["sm90_f32"],
-        "cuda_core": before["cuda_core"]}
+        "sm90": before["sm90"] + 1, "sm90_f32": before["sm90_f32"]}
     assert got.dtype == torch.bfloat16
     want = ref.flash_attention_ref(q, k, v, causal=causal)
     torch.testing.assert_close(got.float(), want, rtol=2 ** -8, atol=1e-5)
@@ -898,31 +899,10 @@ def test_flash_attention_sm90_route(dev, hd, T, S, causal):
         assert not got[:, :, :T - S].any()
 
 
-@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("T,S", [(200, 200), (130, 333), (300, 111)],
-                         ids=["T=S", "T<S", "T>S"])
-@pytest.mark.parametrize("hd", (12, 100))
-def test_flash_attention_cuda_core_bf16_route(dev, hd, T, S, causal):
-    """bf16 with a head_dim that is not a multiple of 8 (TMA's 16-byte
-    row stride) stays on the CUDA-core kernel's bf16 entry, held to the
-    same one-bf16-rounding gate."""
-    from repro_torch.kernels import flash_attention as flash_mod
-    q, k, v = _qkv(dev, 2, 8, 2, T, S, hd, seed=hd + T + S,
-                   dtype=torch.bfloat16)
-    before = dict(flash_mod.launches_by_route)
-    got = flash_mod.flash_attention(q, k, v, causal=causal)
-    torch.cuda.synchronize()
-    assert flash_mod.launches_by_route == {
-        "sm90": before["sm90"], "sm90_f32": before["sm90_f32"],
-        "cuda_core": before["cuda_core"] + 1}
-    assert got.dtype == torch.bfloat16
-    want = ref.flash_attention_ref(q, k, v, causal=causal)
-    torch.testing.assert_close(got.float(), want, rtol=2 ** -8, atol=1e-5)
-    if causal and T > S:
-        assert not got[:, :, :T - S].any()
-
-
-SM90_F32_HEAD_DIMS = (16, 24, 40, 64, 128, 160, 192)
+# As SM90_HEAD_DIMS, and 16; in f32 the wrapper pads only head_dims that
+# are not multiples of 4 (6, 13), and takes 12, 100 and 156 as they are.
+SM90_F32_HEAD_DIMS = (6, 12, 13, 16, 24, 40, 64, 100, 128, 156, 160, 192,
+                      200, 256)
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
@@ -930,9 +910,10 @@ SM90_F32_HEAD_DIMS = (16, 24, 40, 64, 128, 160, 192)
                          ids=["T=S", "T<S", "T>S"])
 @pytest.mark.parametrize("hd", SM90_F32_HEAD_DIMS)
 def test_flash_attention_sm90_f32_route(dev, hd, T, S, causal):
-    """f32 with a head_dim that is a multiple of 8 goes through the
-    split-TF32 tensor-core kernel, with T = S, T < S and T > S (rows with
-    no key exactly 0), S never a multiple of a key tile, causal and full;
+    """f32 goes through the split-TF32 tensor-core kernel at every
+    head_dim of the configs and the JAX tests, at head_dims the wrapper
+    zero-pads and up to 256, with T = S, T < S and T > S (rows with no
+    key exactly 0), S never a multiple of a key tile, causal and full;
     each output within the f32 tolerance (rtol/atol 2e-5) of the plain
     version."""
     from repro_torch.kernels import flash_attention as flash_mod
@@ -941,8 +922,7 @@ def test_flash_attention_sm90_f32_route(dev, hd, T, S, causal):
     got = flash_mod.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert flash_mod.launches_by_route == {
-        "sm90": before["sm90"], "sm90_f32": before["sm90_f32"] + 1,
-        "cuda_core": before["cuda_core"]}
+        "sm90": before["sm90"], "sm90_f32": before["sm90_f32"] + 1}
     assert got.dtype == torch.float32
     want = ref.flash_attention_ref(q, k, v, causal=causal)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
@@ -950,43 +930,39 @@ def test_flash_attention_sm90_f32_route(dev, hd, T, S, causal):
         assert not got[:, :, :T - S].any()
 
 
-@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("T,S", [(200, 200), (130, 333), (300, 111)],
-                         ids=["T=S", "T<S", "T>S"])
-@pytest.mark.parametrize("hd", (12, 100))
-def test_flash_attention_cuda_core_f32_route(dev, hd, T, S, causal):
-    """f32 with a head_dim that is not a multiple of 8 stays on the
-    CUDA-core kernel's f32 entry, held to the same f32 tolerance."""
+@pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 100),
+                                      (torch.bfloat16, 156),
+                                      (torch.float32, 13)])
+def test_flash_attention_padded_launch_leaves_inputs_unmodified(dev, dtype,
+                                                                hd):
+    """A head_dim whose rows are not a multiple of 16 bytes is launched on
+    zero-padded copies: q, k and v keep their shapes and values, the
+    output has the true head_dim and is contiguous, and one launch is
+    counted on the dtype's tensor-core route."""
     from repro_torch.kernels import flash_attention as flash_mod
-    q, k, v = _qkv(dev, 2, 8, 2, T, S, hd, seed=hd + T + S)
-    before = dict(flash_mod.launches_by_route)
-    got = flash_mod.flash_attention(q, k, v, causal=causal)
+    q, k, v = _qkv(dev, 1, 8, 2, 200, 300, hd, seed=hd, dtype=dtype)
+    kept = [x.clone() for x in (q, k, v)]
+    route = flash_mod.route(dtype, hd)
+    before = flash_mod.launches_by_route[route]
+    got = flash_mod.flash_attention(q, k, v)
     torch.cuda.synchronize()
-    assert flash_mod.launches_by_route == {
-        "sm90": before["sm90"], "sm90_f32": before["sm90_f32"],
-        "cuda_core": before["cuda_core"] + 1}
-    want = ref.flash_attention_ref(q, k, v, causal=causal)
-    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
-    if causal and T > S:
-        assert not got[:, :, :T - S].any()
+    assert flash_mod.launches_by_route[route] == before + 1
+    for x, y in zip((q, k, v), kept):
+        assert x.shape[-1] == hd and torch.equal(x, y)
+    assert got.shape == (1, 8, 200, hd) and got.is_contiguous()
+    rtol, atol = (2e-5, 2e-5) if dtype == torch.float32 else (2 ** -8, 1e-5)
+    torch.testing.assert_close(got.float(), ref.flash_attention_ref(q, k, v),
+                               rtol=rtol, atol=atol)
 
 
-def test_flash_attention_cuda_core_f32_entry_beside_sm90_f32(dev):
-    """The CUDA-core f32 entry stays callable directly (chip_smoke times
-    it beside the tensor-core kernel) and meets the same tolerance at
-    stablelm's heads."""
+def test_flash_attention_refuses_head_dims_past_256(dev):
+    """Above 256 the card refuses, naming the limit, before any launch."""
     from repro_torch.kernels import flash_attention as flash_mod
-    q, k, v = _qkv(dev, 1, 32, 8, 512, 512, 160, seed=11)
-    before = dict(flash_mod.launches_by_route)
-    old = flash_mod._launch("cuda_core", q, k, v)
-    new = flash_mod.flash_attention(q, k, v)
-    torch.cuda.synchronize()
-    assert flash_mod.launches_by_route == {
-        "sm90": before["sm90"], "sm90_f32": before["sm90_f32"] + 1,
-        "cuda_core": before["cuda_core"] + 1}
-    want = ref.flash_attention_ref(q, k, v)
-    torch.testing.assert_close(old, want, rtol=2e-5, atol=2e-5)
-    torch.testing.assert_close(new, want, rtol=2e-5, atol=2e-5)
+    q, k, v = _qkv(dev, 1, 2, 1, 16, 16, 320, seed=1)
+    before = flash_mod.launches
+    with pytest.raises(ValueError, match=r"1\.\.256"):
+        flash_mod.flash_attention(q, k, v)
+    assert flash_mod.launches == before
 
 
 def test_flash_attention_sm90_f32_takes_strided_views(dev):
@@ -1020,8 +996,8 @@ def test_flash_attention_sm90_f32_copies_unaligned_bases(dev):
 
 
 @pytest.mark.parametrize("dtype,hd,route", [
-    (torch.float32, 160, "sm90_f32"), (torch.float32, 100, "cuda_core"),
-    (torch.bfloat16, 160, "sm90"), (torch.bfloat16, 100, "cuda_core")])
+    (torch.float32, 160, "sm90_f32"), (torch.float32, 100, "sm90_f32"),
+    (torch.bfloat16, 160, "sm90"), (torch.bfloat16, 100, "sm90")])
 def test_flash_attention_keeps_a_nan_row_nan(dev, dtype, hd, route):
     """A NaN in q makes its row NaN, as in the plain version (each kernel
     once wrote such a row as 0: its l is NaN, and only l = 0 means no

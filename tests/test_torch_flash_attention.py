@@ -26,6 +26,13 @@ SHAPES = [
     (1, 12, 4, 384, 384, 192, True),    # nemotron head_dim
     (2, 4, 1, 256, 512, 64, True),      # MQA
     (1, 4, 4, 200, 300, 64, True),      # unaligned lengths
+    # head_dims the kernels take padded (rows of 16 bytes) or at 256,
+    # the widest they take: 12 and 100 (not multiples of 8), stablelm's
+    # 160 less 4, Gemma-2-9B's 256.
+    (1, 4, 2, 200, 300, 12, True),
+    (1, 4, 2, 200, 300, 100, True),
+    (1, 4, 2, 200, 300, 156, True),
+    (1, 4, 2, 200, 300, 256, True),
 ]
 
 
@@ -124,24 +131,42 @@ def test_wrapper_never_runs_plain_version_off_the_cpu():
     (torch.bfloat16, 24, "sm90"), (torch.bfloat16, 40, "sm90"),
     (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 128, "sm90"),
     (torch.bfloat16, 160, "sm90"), (torch.bfloat16, 192, "sm90"),
-    (torch.bfloat16, 12, "cuda_core"), (torch.bfloat16, 100, "cuda_core"),
+    (torch.bfloat16, 12, "sm90"), (torch.bfloat16, 100, "sm90"),
     (torch.float32, 160, "sm90_f32"), (torch.float32, 64, "sm90_f32"),
-    (torch.float32, 192, "sm90_f32"), (torch.float32, 12, "cuda_core"),
-    (torch.float32, 100, "cuda_core"),
+    (torch.float32, 192, "sm90_f32"), (torch.float32, 12, "sm90_f32"),
+    (torch.float32, 100, "sm90_f32"),
+    (torch.bfloat16, 1, "sm90"), (torch.bfloat16, 200, "sm90"),
+    (torch.bfloat16, 256, "sm90"), (torch.float32, 1, "sm90_f32"),
+    (torch.float32, 200, "sm90_f32"), (torch.float32, 256, "sm90_f32"),
 ])
 def test_route_rule(dtype, hd, want):
-    """head_dim % 8 == 0 (up to 192) goes to a tensor-core kernel: sm90 in
-    bf16, sm90_f32 (split TF32) in f32; any other head_dim stays on the
-    CUDA-core kernel in either dtype.  Every head_dim of the configs and
-    the JAX tests takes a tensor-core route."""
+    """Every head_dim from 1 to 256 goes to a tensor-core kernel chosen
+    by dtype: sm90 in bf16, sm90_f32 (split TF32) in f32.  A head_dim
+    whose rows are not a multiple of 16 bytes (12, 100 in bf16) is
+    zero-padded by the wrapper first."""
     assert flash_mod.route(dtype, hd) == want
 
 
-def _emulate_sm90(q, k, v, *, causal, split_p):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [257, 512])
+def test_route_refuses_head_dims_past_256(dtype, hd):
+    """The card refuses a head_dim above 256, naming the limit; the plain
+    version, and so a CPU tensor, takes any head_dim, as the reference
+    does."""
+    with pytest.raises(ValueError, match=r"1\.\.256"):
+        flash_mod.route(dtype, hd)
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 1, 8, 8, hd, hd))
+    got = flash_mod.flash_attention(q, k, v)
+    assert got.shape == (1, 2, 8, hd)
+    torch.testing.assert_close(got, flash_mod.flash_attention_ref(q, k, v))
+
+
+def _emulate_sm90(q, k, v, *, causal, split_p, key_tile=64, scale=None):
     """The sm90 kernel's arithmetic on bf16 inputs, in f32 on the CPU.
 
-    Per 64-key tile: S = q k^T from the raw bf16 values (each product
-    exact in f32, f32 sums), scaled by hd^-0.5 afterwards; the online
+    Per key tile (64 keys up to hd 192, 32 above): S = q k^T from the
+    raw bf16 values (each product exact in f32, f32 sums), scaled by
+    ``scale`` (hd^-0.5 by default) afterwards; the online
     softmax in f32 (masked scores -inf, l summed from the f32 p, acc
     rescaled by exp(m_prev - m_new)); P.V with P split into hi = bf16(p)
     and lo = bf16(p - hi), both into the f32 acc (``split_p``), or P
@@ -157,9 +182,10 @@ def _emulate_sm90(q, k, v, *, causal, split_p):
     l = torch.zeros((B, H, T, 1))
     acc = torch.zeros((B, H, T, hd))
     t = torch.arange(T)[:, None]
-    for k0 in range(0, S, 64):
-        cols = torch.arange(k0, min(k0 + 64, S))
-        s = (qf @ kf[:, :, cols].transpose(-1, -2)) * hd ** -0.5
+    scale = hd ** -0.5 if scale is None else scale
+    for k0 in range(0, S, key_tile):
+        cols = torch.arange(k0, min(k0 + key_tile, S))
+        s = (qf @ kf[:, :, cols].transpose(-1, -2)) * scale
         if causal:
             s = torch.where(cols[None, :] <= t + (S - T), s, -torch.inf)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
@@ -226,12 +252,12 @@ def _split(x):
     return hi, (lo & ~0x1FFF).view(torch.float32)
 
 
-def _emulate_sm90_f32(q, k, v, *, causal, split, key_tile=32):
+def _emulate_sm90_f32(q, k, v, *, causal, split, key_tile=32, scale=None):
     """The sm90_f32 kernel's arithmetic on f32 inputs, on the CPU.
 
-    Per key tile (32 keys at hd 160): S from the split-TF32 product
-    (``_split``), hi.hi and lo.hi + hi.lo summed apart, scaled by hd^-0.5
-    afterwards; the
+    Per key tile (32 keys at hd 160, 16 above 160): S from the split-TF32
+    product (``_split``), hi.hi and lo.hi + hi.lo summed apart, scaled by
+    ``scale`` (hd^-0.5 by default) afterwards; the
     online softmax in f32 (masked scores -inf, l summed from the f32 p,
     acc rescaled by exp(m_prev - m_new)); O += P v, again split; acc / l
     once.  Each product of two TF32 values is exact in f32, so only the
@@ -249,6 +275,7 @@ def _emulate_sm90_f32(q, k, v, *, causal, split, key_tile=32):
     l = torch.zeros((B, H, T, 1))
     acc = torch.zeros((B, H, T, hd))
     t = torch.arange(T)[:, None]
+    scale = hd ** -0.5 if scale is None else scale
     for k0 in range(0, S, key_tile):
         cols = torch.arange(k0, min(k0 + key_tile, S))
         kh, kl = _split(kf[:, :, cols].transpose(-1, -2))
@@ -256,7 +283,7 @@ def _emulate_sm90_f32(q, k, v, *, causal, split, key_tile=32):
         s = qh @ kh
         if split:
             s = s + (ql @ kh + qh @ kl)
-        s = s * hd ** -0.5
+        s = s * scale
         if causal:
             s = torch.where(cols[None, :] <= t + (S - T), s, -torch.inf)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
@@ -314,3 +341,49 @@ def test_one_tf32_product_breaks_the_f32_gate():
     got = _emulate_sm90_f32(q, k, v, causal=True, split=False).numpy()
     outside = np.abs(got - want) > 2e-5 + 2e-5 * np.abs(want)
     assert outside.mean() > 0.5
+
+
+def _padded(x, width):
+    return torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+
+
+@pytest.mark.parametrize("T,S", [(200, 300), (256, 256), (300, 111)])
+def test_padded_head_dim_is_bitwise_the_unpadded_arithmetic(T, S):
+    """What the wrapper does for a head_dim whose rows are not a multiple
+    of 16 bytes: q, k and v zero-padded (hd 100 -> 104), the kernel run
+    at the padded width with the true hd's scale, the first hd columns
+    kept.  Zero columns add exact zeros to every score, and split into
+    hi = lo = 0, so both kernels' arithmetic gives bitwise the output of
+    the unpadded head_dim."""
+    q, k, v = map(torch.from_numpy, _qkv(1, 4, 2, T, S, 100, T + S))
+    pq, pk, pv = (_padded(x, 104) for x in (q, k, v))
+    f32 = _emulate_sm90_f32(q, k, v, causal=True, split=True)
+    f32_pad = _emulate_sm90_f32(pq, pk, pv, causal=True, split=True,
+                                scale=100 ** -0.5)
+    assert torch.equal(f32_pad[..., :100], f32)
+    assert not f32_pad[..., 100:].any()
+    bq, bk, bv = (x.bfloat16() for x in (q, k, v))
+    bf16 = _emulate_sm90(bq, bk, bv, causal=True, split_p=True)
+    bf16_pad = _emulate_sm90(*(_padded(x, 104) for x in (bq, bk, bv)),
+                             causal=True, split_p=True, scale=100 ** -0.5)
+    assert torch.equal(bf16_pad[..., :100], bf16)
+
+
+def test_kernel_arithmetic_meets_its_gates_at_head_dim_256():
+    """At hd 256, the widest head_dim the kernels take, with their tile
+    plans there (32-key tiles in bf16, 16 in f32): the bf16 arithmetic
+    within one bf16 rounding of the JAX oracle's f32 output on the same
+    bf16 values, the split-TF32 arithmetic within 2e-5 of the oracle."""
+    q, k, v = _qkv(1, 4, 2, 256, 256, 256, 25)
+    want = np.asarray(jax_ref.flash_attention_ref(
+        *map(jnp.asarray, (q, k, v))))
+    got = _emulate_sm90_f32(*map(torch.from_numpy, (q, k, v)), causal=True,
+                            split=True, key_tile=16)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+    bq, bk, bv = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    want16 = np.asarray(jax_ref.flash_attention_ref(
+        *(jnp.asarray(t.float().numpy()) for t in (bq, bk, bv))))
+    got16 = _emulate_sm90(bq, bk, bv, causal=True, split_p=True,
+                          key_tile=32)
+    np.testing.assert_allclose(got16.float().numpy(), want16, rtol=2 ** -8,
+                               atol=1e-5)
