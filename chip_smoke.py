@@ -35,7 +35,13 @@ Phases, each printed as it runs:
              regime and strips ``plan`` chose, the design floor and the
              earlier design's time), and time kernel, plain version
              and, where one exists, the single PyTorch call computing
-             the same function.
+             the same function.  The entry points with the JAX
+             package's keywords at other values than its defaults
+             (ops.track_interp block_m, ops.agl_lookup oracle_rows,
+             segment_pipeline.process_segments agl_oracle, interpret
+             and donate at B = 1024, M = 1024; screen_aligned interpret
+             at the one-cell launches): bitwise the calls without them,
+             each call launching its kernels once.
 3. workflow— the port's TrackWorkflow end to end on the card (threads,
              8 workers, 4 tasks per message, 8 raw files at scale 500),
              with every kernel's launch counter zeroed just before and
@@ -108,9 +114,15 @@ Phases, each printed as it runs:
              tensor cores, on k and v repeated to H heads outside the
              timing), with its share of outputs outside the gate, the
              bound (f32: the split-TF32 products at the TF32 rate) and
-             the bf16 kernel's design floor printed.
+             the bf16 kernel's design floor printed.  ops.flash_attention
+             with block_q = block_k = 64 at stablelm's heads in both
+             dtypes, as in phase 2; then one [reference-keywords] line
+             with every such entry and its launch deltas.
 7. lm      — stablelm-12b at full width and depth (40 layers, 12.1 B
-             parameters in bf16, random from a seed) on the card: forward
+             parameters in bf16, random from a seed) on the card:
+             init_superblock_params' superblock 0 from the generator
+             state init_params' top-level draws leave, bitwise the
+             stacked slices 0 (freed before the forward); forward
              on 2 x 2048 tokens with attention_impl "flash" (the flash
              counters zeroed just before, 40 launches, all on the sm90
              route, read just after; the kernel's share of the profiled
@@ -423,6 +435,9 @@ FLASH_WIDE_SHAPES = ((1, 16, 8, 4096, 4096, 256, True),
                      (1, 32, 8, 4096, 4096, 156, True),
                      (1, 96, 8, 4096, 4096, 192, True),
                      (1, 32, 32, 4096, 4096, 96, True))
+# Phase 6 calls ops.flash_attention with the reference's block keywords
+# at stablelm's heads.
+FLASH_KEYWORDS_SHAPE = (1, 32, 8, 512, 512, 160, True)
 FLASH_PADDED_SHAPES = tuple((1, 4, 2, 256, 256, hd, True)
                             for hd in (12, 100, 200))
 # Phase 10: training.  (a) minicpm-2b at full width (bf16 weights, AdamW
@@ -780,6 +795,8 @@ def phase_kernels(globe_dem) -> dict:
             results[name]["max_abs_err"] = max(
                 results[name]["max_abs_err"], row["max_abs_err"])
         if W == WIDTHS[-1]:
+            phase_kernels_keywords(dem, grid, t_in, v_in, count_in, t_out,
+                                   count_out, fi, fj, alt)
             # A dt that is not a power of two takes the IEEE divisions.
             row = rates_check(v_grid, count_out, RATES_IEEE_DT)
             say_kernel("dynamic_rates", f"B={B} M={W:4d} dt={RATES_IEEE_DT} "
@@ -902,6 +919,73 @@ def say_kernel(name: str, shape: str, row: dict,
                    + f"; kernel {row['ms']:.4f} ms, plain "
                    f"{row['plain_ms']:.4f} ms, library {lib} ms, bound "
                    f"{row['bound_ms']:.4g} ms ({row['bound_by']})" + extra)
+
+
+# Phases 2 and 6 call each kernel entry point with the JAX package's
+# keywords at values other than its defaults (tests/test_torch_reference_
+# keywords.py's values); phase 6 prints the entries on one line.
+REFERENCE_KEYWORDS: list = []
+
+
+def keywords_check(label: str, mods: dict, plain, with_keywords) -> None:
+    """``with_keywords()`` against ``plain()``, bitwise (a tensor, or a
+    dict of tensors or arrays), each call adding one to the launch
+    counter of every kernel module in ``mods`` (name -> module): the
+    kernels ran, not their plain versions."""
+    import numpy as np
+    import torch
+
+    def launched(call):
+        before = {n: m.launches for n, m in mods.items()}
+        out = call()
+        torch.cuda.synchronize()
+        return out, {n: m.launches - before[n] for n, m in mods.items()}
+
+    got, delta = launched(with_keywords)
+    want, delta_plain = launched(plain)
+    if isinstance(got, dict):
+        same = sorted(got) == sorted(want) and all(
+            np.array_equal(got[k], want[k]) for k in want)
+    else:
+        same = torch.equal(got, want)
+    ones = {n: 1 for n in mods}
+    if not same or delta != ones or delta_plain != ones:
+        raise AssertionError(f"{label}: bitwise {same}, launches {delta} "
+                             f"(without the keywords {delta_plain}), "
+                             f"expected one launch of each of "
+                             f"{sorted(mods)} a call")
+    REFERENCE_KEYWORDS.append(
+        f"{label} bitwise, " + ", ".join(f"{n} +{d}"
+                                         for n, d in delta.items()))
+
+
+def phase_kernels_keywords(dem, grid, t_in, v_in, count_in, t_out,
+                           count_out, fi, fj, alt) -> None:
+    """The process kernels' entry points with the reference's keywords,
+    at phase 2's widest bucket."""
+    import torch
+    from repro_torch.kernels import agl_lookup, dynamic_rates, ops
+    from repro_torch.kernels import segment_pipeline, track_interp
+
+    keywords_check(
+        "ops.track_interp(block_m=128)", {"track_interp": track_interp},
+        lambda: ops.track_interp(t_in, v_in, count_in, t_out),
+        lambda: ops.track_interp(t_in, v_in, count_in, t_out, block_m=128))
+    every = torch.ones(fi.shape[0], dtype=torch.bool, device=fi.device)
+    keywords_check(
+        "ops.agl_lookup(oracle_rows=all True)", {"agl_lookup": agl_lookup},
+        lambda: ops.agl_lookup(dem, fi, fj, alt),
+        lambda: ops.agl_lookup(dem, fi, fj, alt, oracle_rows=every))
+    args = (dem, t_in, v_in, count_in, t_out, count_out)
+    keywords_check(
+        "segment_pipeline.process_segments(agl_oracle=True, "
+        "interpret=False, donate=True)",
+        {"track_interp": track_interp, "agl_lookup": agl_lookup,
+         "dynamic_rates": dynamic_rates},
+        lambda: segment_pipeline.process_segments(*args, grid=grid),
+        lambda: segment_pipeline.process_segments(
+            *args, grid=grid, agl_oracle=True, interpret=False,
+            donate=True))
 
 
 def top_shape(by_shape: dict):
@@ -1051,6 +1135,18 @@ def phase_screen_kernels(floor: dict) -> dict:
                 f"its plain version bitwise: max |diff| {err}")
         res["per_shape"][f"{C}x{K}x{T}"] = row
         res["max_abs_err"] = max(res["max_abs_err"], err)
+    # The screen workflow's one-cell launches through screen_aligned,
+    # with the reference's interpret keyword.
+    for C, K, T in SCREEN_SHAPES:
+        if (C, K) != (1, 8):
+            continue
+        planes = screen_cells(rng, C, K, T)
+        kw = dict(h_thresh_m=SCREEN_H_M, v_thresh_m=SCREEN_V_M)
+        keywords_check(
+            f"screen_aligned(interpret=False) at ({C}, {K}, {T})",
+            {"encounter_screen": screen},
+            lambda: screen.screen_aligned(*planes, **kw),
+            lambda: screen.screen_aligned(*planes, interpret=False, **kw))
     return res
 
 
@@ -1911,6 +2007,21 @@ def phase_flash() -> dict:
             for hd in (156, 160))
         say("flash", f"hd 156 / hd 160 at stablelm's heads, {dt}: "
                      f"{pad:.4f} / {full:.4f} ms = {pad / full:.3f}x")
+    # The reference's block keywords at stablelm's heads, on each route.
+    from repro_torch.kernels import ops
+    B, H, KV, T, S, hd, causal = FLASH_KEYWORDS_SHAPE
+    for dt in both:
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
+                   for shape in ((B, H, T, hd), (B, KV, S, hd),
+                                 (B, KV, S, hd)))
+        keywords_check(
+            f"ops.flash_attention(block_q=64, block_k=64) hd {hd} "
+            f"{str(dt)[6:]}", {"flash_attention": flash_mod},
+            lambda: ops.flash_attention(q, k, v, causal=causal),
+            lambda: ops.flash_attention(q, k, v, causal=causal, block_q=64,
+                                        block_k=64))
+        del q, k, v
+    say("reference-keywords", "; ".join(REFERENCE_KEYWORDS))
     return res
 
 
@@ -2574,6 +2685,32 @@ def serve_and_profile(tag: str, cfg, params, rng, n_requests: int,
                                               for r in rounds)}
 
 
+def init_superblock_check(cfg, params: dict, seed: int) -> None:
+    """Superblock 0 drawn by ``init_superblock_params`` from a card
+    generator seeded ``seed`` after ``init_params``' top-level draws:
+    bitwise ``params``' stacked slices 0 (``params`` drawn from the same
+    seed).  Freed before it returns."""
+    import torch
+    from repro_torch.models import model as M
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    M._init_top(cfg, gen, lambda key, x: None)
+    sb0 = M.init_superblock_params(cfg, gen, 0)
+    paths = _leaf_paths(sb0)
+    differ = []
+    for path in paths:
+        got, stacked = sb0, params["blocks"]
+        for key in path.split("/"):
+            got, stacked = got[key], stacked[key]
+        if not torch.equal(got, stacked[0]):
+            differ.append(path)
+    del sb0, got, stacked
+    torch.cuda.empty_cache()
+    if differ:
+        raise AssertionError(f"init_superblock_params(sb=0) differs from "
+                             f"init_params' slices at {differ}")
+    say("init-superblock", f"{cfg.name} sb 0: {len(paths)} leaves bitwise")
+
+
 def phase_lm() -> dict:
     """stablelm-12b at full width and depth on the card, through the
     port's forward, prefill/decode_step and BatchedServer."""
@@ -2601,6 +2738,7 @@ def phase_lm() -> dict:
               f"{cfg.head_dim_}), d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: "
               f"{n_params} parameters, {n_bytes / 1e9:.2f} GB on the card, "
               f"drawn in {time.perf_counter() - t0:.2f}s")
+    init_superblock_check(cfg, params, seed=0)
     rng = np.random.default_rng(0)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (LM_B, LM_T))
                             .astype(np.int32)).to(dev)

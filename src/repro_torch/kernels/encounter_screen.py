@@ -291,7 +291,7 @@ reset_screen_stats()
 
 def screen_aligned(lat, lon, alt, valid, *, h_thresh_m: float,
                    v_thresh_m: float, backend: str = "kernel",
-                   device=None) -> dict:
+                   interpret: Optional[bool] = None, device=None) -> dict:
     """Screen a (C, K, T) batch of time-aligned cells on ``device``.
 
     Pads rows to a multiple of 8, time to 128-sample chunks, and the
@@ -299,7 +299,15 @@ def screen_aligned(lat, lon, alt, valid, *, h_thresh_m: float,
     (the reference's padding), then runs ``backend``.  Returns
     ``{"hit", "min_dh", "min_dv", "t_idx"}`` as (C, K, K) float32 numpy
     arrays (strict upper triangle).
+
+    ``interpret`` (``None`` or a bool) is the reference's Pallas
+    interpret switch and changes no output: the port has no interpret
+    mode, and the CPU runs the plain version because the caller chose
+    ``device="cpu"``.
     """
+    if interpret is not None and not isinstance(interpret, bool):
+        raise ValueError(f"interpret must be None or a bool, got "
+                         f"{interpret!r}")
     if backend not in SCREEN_BACKENDS:
         raise ValueError(f"unknown screen backend {backend!r}; choose "
                          f"from {SCREEN_BACKENDS}")

@@ -11,6 +11,7 @@ directly.
 
 from __future__ import annotations
 
+import numbers
 import threading
 from typing import Literal
 
@@ -84,9 +85,39 @@ def _f32(x) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32).contiguous()
 
 
-def track_interp(t_in, v_in, count, t_out, *, backend: Backend = "kernel"):
-    """(B,N),(B,C,N),(B,),(B,M) -> (B,M,C). See ref.track_interp_ref."""
+def _check_block(name: str, value) -> None:
+    """A reference block size: a positive int, else ``ValueError``."""
+    if (isinstance(value, bool) or not isinstance(value, numbers.Integral)
+            or value <= 0):
+        raise ValueError(f"{name} must be a positive int, got {value!r}")
+
+
+def _check_oracle_rows(oracle_rows, B: int) -> None:
+    """``None`` or a bool mask of ``B`` rows, else ``ValueError``."""
+    if oracle_rows is None:
+        return
+    if torch.is_tensor(oracle_rows):
+        shape, is_bool = tuple(oracle_rows.shape), (
+            oracle_rows.dtype == torch.bool)
+    else:
+        mask = np.asarray(oracle_rows)
+        shape, is_bool = mask.shape, mask.dtype == np.bool_
+    if not is_bool or shape != (B,):
+        raise ValueError(f"oracle_rows must be None or a bool mask of "
+                         f"{B} rows, got shape {shape}"
+                         + ("" if is_bool else ", not bool"))
+
+
+def track_interp(t_in, v_in, count, t_out, *, backend: Backend = "kernel",
+                 block_m: int = 256):
+    """(B,N),(B,C,N),(B,),(B,M) -> (B,M,C). See ref.track_interp_ref.
+
+    ``block_m`` is the reference's query tile; it is checked (a positive
+    int) and changes no output: the kernel takes any M, so the tile only
+    decided the reference's padding of M, which it cuts off again.
+    """
     _check_backend(backend)
+    _check_block("block_m", block_m)
     args = (_f32(t_in), _f32(v_in),
             torch.as_tensor(count, dtype=torch.int32), _f32(t_out))
     if backend == "ref":
@@ -104,15 +135,20 @@ def dynamic_rates(v, count, dt, *, backend: Backend = "kernel"):
     return _rates_kernel(v, count, float(dt))
 
 
-def agl_lookup(dem, fi, fj, alt_msl, *, backend: Backend = "kernel"):
+def agl_lookup(dem, fi, fj, alt_msl, *, backend: Backend = "kernel",
+               oracle_rows=None):
     """(H,W),(B,M),(B,M),(B,M) -> (B,M) AGL. See ref.agl_lookup_ref.
 
     The kernel path first clips the indices to [0, H - 1.001] and
     [0, W - 1.001], as the reference's row routing does before its tile
     kernel or its oracle; the one gather kernel then serves every row,
     whatever its extent, so no row is routed anywhere else.
+    ``oracle_rows`` (``None`` or a (B,) bool mask), which in the
+    reference forces rows onto its oracle gather, is checked and changes
+    no output for that reason.
     """
     _check_backend(backend)
+    _check_oracle_rows(oracle_rows, np.shape(fi)[0])
     dem = _f32(dem)
     fi, fj, alt_msl = (_f32(x).to(dem.device) for x in (fi, fj, alt_msl))
     if backend == "ref":
@@ -152,16 +188,22 @@ def process_segments(dem, t_in, v_in, count_in, t_out, count_out, *,
             _STATS["compile_misses"] += 1
     return segment_pipeline.process_segments(
         dem, t_in, v_in, count_in, t_out, count_out, grid=grid, dt=dt,
-        use_kernels=use_kernels)
+        use_kernels=use_kernels, agl_oracle=bool(agl_oracle))
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
-                    backend: Backend = "kernel") -> torch.Tensor:
+                    backend: Backend = "kernel", block_q: int = 128,
+                    block_k: int = 128) -> torch.Tensor:
     """Blocked online-softmax attention (GQA): q (B,H,T,hd), k/v
     (B,KV,S,hd) -> (B,H,T,hd) in q's dtype, query t attending keys
     <= t + (S - T) when ``causal``.  Views (the attention layer hands
     over transposed ones) are made contiguous here; the kernel takes any
     T and S, so nothing is padded.  See ref.flash_attention_ref.
+
+    ``block_q`` and ``block_k`` are the reference's tiles; they are
+    checked (positive ints) and change no output.  In the reference they
+    decide only the padding of T and S, and, causal with T > S, the rows
+    that have no key; the port writes those rows as 0 on both devices.
 
     It has no gradient, on either backend or device: with grad mode on
     and q, k or v requiring grad it raises ``NotImplementedError``, as
@@ -179,6 +221,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
             "pallas_call's JVP rule, _pallas_call_jvp_rule); train with "
             "attention_impl='xla'")
     _check_backend(backend)
+    _check_block("block_q", block_q)
+    _check_block("block_k", block_k)
     q, k, v = (torch.as_tensor(x).contiguous() for x in (q, k, v))
     if backend == "ref":
         return ref.flash_attention_ref(q, k, v, causal=causal).to(q.dtype)

@@ -90,8 +90,9 @@ def _pipeline(dem, t_in, v_in, count_in, t_out, count_out, *,
 
 
 def process_segments(dem, t_in, v_in, count_in, t_out, count_out, *,
-                     grid, dt: float = 1.0,
-                     use_kernels: bool = True) -> torch.Tensor:
+                     grid, dt: float = 1.0, use_kernels: bool = True,
+                     agl_oracle: bool = False, interpret: bool = True,
+                     donate: bool = False, use_pallas=None) -> torch.Tensor:
     """Run the pipeline on one (B, K) bucket of segments.
 
     Args:
@@ -106,11 +107,26 @@ def process_segments(dem, t_in, v_in, count_in, t_out, count_out, *,
       use_kernels: False composes the plain versions directly (the
         reference for tests); True calls the kernel wrappers, which run
         the CUDA kernels on a CUDA ``dem`` and the plain versions on CPU.
+      agl_oracle, interpret, donate: the reference's keywords, with its
+        defaults; each must be a bool and changes no output.  The one
+        gather kernel serves both AGL variants (``agl_oracle``), and
+        PyTorch has no interpret mode and no buffer donation.
+      use_pallas: refused with ``TypeError``: the port has no Pallas, as
+        ``backend="pallas"`` is refused.  Pass ``use_kernels``.
 
     Returns:
       (9, B, K) f32 tensor on ``dem``'s device, planes in :data:`FIELDS`
       order, all masked to ``count_out``.
     """
+    if use_pallas is not None:
+        raise TypeError("process_segments() takes use_kernels, not "
+                        "use_pallas: the port runs CUDA kernels, not "
+                        "Pallas (use_kernels=False composes the plain "
+                        "versions)")
+    for name, flag in (("agl_oracle", agl_oracle), ("interpret", interpret),
+                       ("donate", donate)):
+        if not isinstance(flag, (bool, np.bool_)):
+            raise ValueError(f"{name} must be a bool, got {flag!r}")
     device = dem.device
 
     def up(x, dtype):

@@ -214,6 +214,35 @@ def init_sublayer_params(cfg: ArchConfig, generator: torch.Generator,
     return p
 
 
+def init_superblock_params(cfg: ArchConfig, generator: torch.Generator,
+                           sb: int = 0) -> dict:
+    """Superblock ``sb``'s parameters, ``{"s{i}": sublayer}`` for each
+    sublayer of the pattern period (not stacked), on the generator's
+    device.  :func:`init_params` draws its sublayers in this order, one
+    at a time: from a generator in the state its top-level draws leave
+    (:func:`_init_top`), superblocks 0, 1, ... drawn in turn equal its
+    ``blocks["s{i}"][sb]`` bitwise."""
+    period = cfg.pattern_period
+    return {f"s{i}": init_sublayer_params(cfg, generator, sb * period + i)
+            for i in range(period)}
+
+
+def _init_top(cfg: ArchConfig, gen: Optional[torch.Generator],
+              place=lambda key, x: x) -> dict:
+    """The top-level leaves (embedding, final norm, unembedding), drawn
+    from ``gen`` in :func:`init_params`' order, each passed through
+    ``place(key, x)`` as it is drawn."""
+    dt = _dtype(cfg)
+    top = {"embed": place("embed", _init(
+        gen, (cfg.vocab_size, cfg.d_model), dt, scale=0.02))}
+    top["final_norm"] = place("final_norm",
+                              _full((cfg.d_model,), 1.0, F32, gen))
+    if not cfg.tie_embeddings:
+        top["unembed"] = place("unembed", _init(
+            gen, (cfg.d_model, cfg.vocab_size), dt))
+    return top
+
+
 def init_params(cfg: ArchConfig, generator: Optional[torch.Generator],
                 device=None, shardings=None) -> dict:
     """Random parameters of the JAX package's shapes, scales and dtypes,
@@ -234,20 +263,12 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator],
     unsharded call's."""
     device = ops.resolve_device(device)
     gen = generator
-    dt = _dtype(cfg)
 
     def top(key: str, x: torch.Tensor) -> torch.Tensor:
         x = x.to(device)
         return x if shardings is None else _distribute(x, shardings[key])
 
-    params: dict[str, Any] = {
-        "embed": top("embed", _init(gen, (cfg.vocab_size, cfg.d_model), dt,
-                                    scale=0.02))}
-    params["final_norm"] = top("final_norm",
-                               _full((cfg.d_model,), 1.0, F32, gen))
-    if not cfg.tie_embeddings:
-        params["unembed"] = top("unembed", _init(
-            gen, (cfg.d_model, cfg.vocab_size), dt))
+    params: dict[str, Any] = _init_top(cfg, gen, top)
     n, period = cfg.n_superblocks, cfg.pattern_period
     blocks: dict[str, Any] = {}
     for sb in range(n):

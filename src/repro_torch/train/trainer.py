@@ -157,11 +157,12 @@ class Trainer:
 
     # -- re-mesh -----------------------------------------------------------
 
-    def remesh(self, target) -> None:
-        """Survivor re-mesh: sync-commit, rebuild on ``target`` (a
+    def remesh(self, new_mesh) -> None:
+        """Survivor re-mesh: sync-commit, rebuild on ``new_mesh`` (a
         ``DeviceMesh``, or a device for one device), restore, re-shard,
         continue.  Every rank of the old mesh calls it; a rank outside
-        the new mesh drops out."""
+        the new mesh drops out.  The argument keeps the reference's name,
+        so ``remesh(new_mesh=...)`` works as the reference's does."""
         from torch.distributed.device_mesh import DeviceMesh
         self.async_ckpt.wait()
         ckpt_lib.save(self.ckpt_dir, self.step,
@@ -170,10 +171,10 @@ class Trainer:
         if self.mesh is not None:
             _mesh_barrier(self.mesh)         # rank 0's commit is on disk
         self.step += 1           # restored checkpoint resumes after itself
-        if isinstance(target, DeviceMesh):
-            self._set_mesh(target, None)
+        if isinstance(new_mesh, DeviceMesh):
+            self._set_mesh(new_mesh, None)
         else:
-            self._set_mesh(None, target)
+            self._set_mesh(None, new_mesh)
         if self.active:
             self._build(restore=True)
         else:
