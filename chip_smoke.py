@@ -54,7 +54,8 @@ Phases, each printed as it runs:
              the pipeline.
 5. screen  — the port's TrackWorkflow(input="store", screen=True) on the
              card (threads, 8 workers, 4 tasks per message, 8192 points
-             per shard, the same 8 raw files), with all four launch
+             per shard, 4 raw files at scale 500: the first 4 of phase
+             3's 8, cut for time), with all four launch
              counters zeroed just before and read just after; the
              candidates held against the brute-force screen over the
              same store-derived rows and against the screen tasks re-run
@@ -98,8 +99,10 @@ Phases, each printed as it runs:
              in bf16 and f32, and phase 7b's forwards' shapes in bf16
              (qwen3-moe B = 1, H = 32, KV = 4, hd = 128; jamba KV = 8,
              hd = 128; musicgen B = 2, H = KV = 24, hd = 64; T = S =
-             2048); in both dtypes, head_dims past the configs' at T = S
-             = 4096: Gemma-2-9B's heads (H = 16, KV = 8, hd = 256),
+             2048); in both dtypes at T = S = 4096, phase 7c's head
+             groupings (granite-34b's H = 48 on KV = 1 and
+             llama4-maverick's H = 40 on KV = 8, hd = 128) and head_dims
+             past the configs': Gemma-2-9B's heads (H = 16, KV = 8, hd = 256),
              stablelm's at hd = 156 (zero-padded by the wrapper in bf16;
              printed beside hd 160), nemotron-4-340b's (H = 96, KV = 8,
              hd = 192) and Phi-3-mini's (H = KV = 32, hd = 96: the
@@ -142,9 +145,11 @@ Phases, each printed as it runs:
 7b. arms   — the LM's other arms at full width, random bf16 weights from
              a seed, one model at a time (the previous one freed):
              qwen3-moe-30b-a3b (48 MoE layers, 128 experts, top 8; 61.1
-             GB), rwkv6-3b (32 RWKV-6 layers), jamba-v0.1-52b cut to 16
-             of its 32 layers (Mamba + attention + MoE; 52.1 GB: the
-             whole model's 103.1 GB do not fit) and musicgen-medium on
+             GB), rwkv6-3b (32 RWKV-6 layers),
+             jamba-v0.1-52b cut to 8 of its 32 layers (one period: Mamba
+             + attention + MoE; 26.1 GB: the whole model's 103.1 GB do
+             not fit, and one period leaves phase 7c its time) and
+             musicgen-medium on
              seeded embeds.  Each: forward on B x 2048 with "flash" (the
              counters zeroed just before and read just after: one sm90
              launch per attention layer) and "xla"; each attention layer
@@ -156,7 +161,7 @@ Phases, each printed as it runs:
              whose f32 weights would not fit) within 0.05; the
              whole-model bf16 comparisons gated for the dense musicgen
              and printed for the rest (rounding flips MoE routes, and
-             compounds through RWKV-6's 32 layers, where each bf16 path
+             compounds through RWKV-6's layers, where each bf16 path
              is also printed against its f32 twin);
              BatchedServer (one warm-up request, 2 rounds of 4 requests
              of 16 new tokens) for the token-input models, timed decode
@@ -164,6 +169,32 @@ Phases, each printed as it runs:
              peak memory, decode step ms, device time by kernel and kind
              of kernel, and for the MoE models by stage of the layer
              (route, dispatch, experts, combine).
+7c. lm-wide— the four configs no earlier phase runs, at full width in
+             their bf16 dtypes, random weights from a seed, one model at
+             a time (the previous one freed): pixtral-12b on seeded
+             embeds (40 layers, 24.5 GB) and granite-34b (88 layers, 48
+             query heads on one KV head, 67.9 GB) whole,
+             nemotron-4-340b cut to 4 of its 96 layers (96 heads of 192,
+             squared ReLU, vocabulary 256000; 46.5 GB) and
+             llama4-maverick-400b-a17b to 2 of its 48 (a dense layer and
+             a 128-expert top-1 MoE layer; 36.9 GB).  Each: forward on B
+             x 2048 with "flash" (counters zeroed just before and read
+             just after: one sm90 launch per attention layer) and "xla",
+             tokens/s, peak memory, the profiled forward's idle share
+             and device time by kind of kernel (by MoE stage for
+             llama4).  The dense stacks: flash vs xla logits within 0.03
+             and prefill(64) + decode_step vs forward(65) within 0.05, in
+             bf16.  llama4: each attention layer's flash output against
+             xla's on the same input within 0.03, its MoE sublayer
+             in bf16 against its f32 twin within 0.03 (the experts
+             widened a chunk at a time), and prefill + decode vs forward
+             in bf16 at a capacity factor that drops no token, each MoE
+             layer's expert choices recorded on both paths, held within
+             0.05 on the rows whose choices match (the tokens routed
+             apart printed).  BatchedServer (one warm-up request, 2
+             rounds of 4 requests of 16 new tokens) for granite,
+             nemotron and llama4, timed decode steps for pixtral.  Every
+             line of numbers ends with the card's name and power limit.
 8. bench   — the bench matrices of ``repro_torch.bench``: the campaign's
              quick tier (Tables I/II on the sim, in virtual seconds of the
              cost model, and the threads smoke), the kernels, storage and
@@ -234,7 +265,9 @@ Phases, each printed as it runs:
              before and read just after (all read 0).  (a) The dry run
              (``python -m repro_torch.launch.dryrun --all --multi-pod
              both``, processes backend, one job a core) in a subprocess
-             that sees no card: every (arch x shape x mesh) cell of the
+             that sees no card, started before phase 10 (whose steps are
+             device-bound) and run beside it: every (arch x shape x mesh)
+             cell of the
              ten configs traced on the fake 512-rank process group must
              be ``ok``, with compute and memory terms above 0 and a
              collective term at 0 or above at the H100's datasheet
@@ -325,6 +358,12 @@ SCREEN_OPS_PER_PAIR_SAMPLE = 22
 # brute-force comparison.
 SCREEN_WF = dict(screen_h_m=50_000.0, screen_v_m=1000.0,
                  screen_cell_deg=1.0)
+# Phases 5 and 5b run 4 raw files (hours) at phase 3's scale 500, the
+# same traffic density over half the time.  At 8 files the two phases'
+# host-bound screen took 255-351 s of the script's 817-1012 s on an H100
+# 80GB HBM3 at 700 W (its 8 worker threads swing with the shared host),
+# which left the script no margin under its 900 s.
+SCREEN_FILES = 4
 CAND_ATOL_M = 1e-2
 # Phase 6: the flash kernel's shapes (B, H, KV, T, S, hd, causal).  The
 # six of tests/test_flash_attention.py in f32, its bf16 case, and
@@ -361,22 +400,23 @@ LM_F32_REL_GATE = 1e-3
 SERVE = dict(slots=4, prompt_len=64, cache_len=256)
 SERVE_REQUESTS, SERVE_NEW, SERVE_ROUNDS = 8, 16, 3
 # Phase 7b: the LM's other arms at full width, one model at a time: MoE
-# layers (qwen3-moe), RWKV-6 blocks (rwkv6-3b), Mamba blocks with MoE
-# (jamba, cut to 16 of its 32 layers: its 103.1 GB of bf16 weights do
-# not fit the card's 80 GB) and a stubbed frontend's embeds input
+# layers (qwen3-moe), RWKV-6 blocks (rwkv6-3b), Mamba blocks with MoE (jamba, cut to one period, 8 of its 32
+# layers: its 103.1 GB of bf16 weights do not fit the card's 80 GB) and
+# a stubbed frontend's embeds input
 # (musicgen-medium).  Each model runs in its own bf16 dtypes at full
 # width; ``cut`` overrides its config, ``B`` is the forward's batch,
 # ``cf`` the capacity factor of prefill + decode vs forward (large
 # enough that no token drops, as tests/test_models.py runs it; None: the
 # config's), ``serve`` whether BatchedServer serves it (the reference
-# refuses frontends).
+# refuses frontends).  jamba's depth cut to one period (from the 16
+# layers of earlier runs) gives phase 7c its time in the script's 900 s.
 #
 # Phase 7's whole-model gates (flash vs xla logits, prefill + decode vs
 # forward) hold in bf16 only where rounding does not compound past them:
 # a dense attention stack (``bf16_gates``).  With random weights, a
 # one-ulp difference flips a router's choice in the next MoE layer and,
 # through capacity ranks, other tokens' drops (qwen3-moe, jamba); over
-# RWKV-6's 32 layers the ulps compound that its two chunkings (32 tokens
+# RWKV-6's layers the ulps compound that its two chunkings (32 tokens
 # in prefill(64), 13 in forward(65)) round apart.  The port's bf16
 # arithmetic is the reference's as written: at the reduced configs on
 # the CPU, RWKV-6's ddlerp steps are bitwise the reference's run op by
@@ -399,7 +439,7 @@ LM_ARMS = (
          f32_layers=8, bf16_gates=False),
     dict(arch="rwkv6-3b", cut={}, B=2, cf=None, serve=True,
          f32_layers=None, bf16_gates=False),
-    dict(arch="jamba-v0.1-52b", cut={"n_layers": 16}, B=1, cf=8.0,
+    dict(arch="jamba-v0.1-52b", cut={"n_layers": 8}, B=1, cf=8.0,
          serve=True, f32_layers=8, bf16_gates=False),
     dict(arch="musicgen-medium", cut={}, B=2, cf=None, serve=False,
          f32_layers=None, bf16_gates=True),
@@ -418,6 +458,37 @@ MOE_STAGES = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine")
 SUBLAYER_BF16_GATE = {"moe": LM_REL_GATE, "mamba": LM_REL_GATE,
                       "rwkv6 channel mix": LM_REL_GATE,
                       "rwkv6 time mix": 0.05}
+# Phase 7c: the four configs no earlier phase runs, one at a time at
+# full width in their own bf16 dtypes, cut only in depth where the
+# weights would not fit the card's 80 GB: pixtral-12b (24.5 GB; the
+# stubbed vision frontend's embeds, not served: the reference refuses
+# frontends) and granite-34b (67.9 GB; 48 query heads on one KV head, 88
+# layers) whole; nemotron-4-340b cut to 4 of its 96 layers (46.5 GB of
+# 682 GB; 96 heads of 192, squared ReLU, the 256000-word vocabulary) and
+# llama4-maverick-400b-a17b to 2 of its 48 (one superblock: a dense
+# layer and a 128-expert top-1 MoE layer, 36.9 GB of 789 GB).  ``B`` is
+# the forward's batch of LM_T-token rows: granite's largest whose xla
+# forward fits (a 74.85 GB peak at B = 2 on an H100 80GB HBM3 at 700 W;
+# at B = 4 its grouped f32 attention logits, 1.6 GB a row and layer,
+# and their softmax add some 10 GB, past the card's 85.5e9 bytes).  The
+# others would fit more rows than they run and are held to the time the
+# script has: their xla forwards peaked at 39.04 GB (pixtral, B = 4),
+# 63.02 GB (nemotron, B = 2) and 56.10 GB (llama4, B = 4), some 3.1,
+# 8.3 and 4.8 GB a row above the weights, so pixtral would take about
+# B = 16, nemotron B = 4 and llama4 B = 8 (estimates, not runs).
+# ``bf16_gates``: phase 7's whole-model bf16 gates (flash vs xla logits,
+# prefill + decode vs forward) hold the dense stacks; llama4 is held as
+# phase 7b holds qwen3-moe (MoE routes flip on bf16 rounding): flash
+# against xla layer by layer, its MoE against its f32 twin, prefill +
+# decode against forward on the rows routed alike.
+LM_WIDE = (
+    dict(arch="pixtral-12b", cut={}, B=4, serve=False, bf16_gates=True),
+    dict(arch="granite-34b", cut={}, B=2, serve=True, bf16_gates=True),
+    dict(arch="nemotron-4-340b", cut={"n_layers": 4}, B=2, serve=True,
+         bf16_gates=True),
+    dict(arch="llama4-maverick-400b-a17b", cut={"n_layers": 2}, B=4,
+         serve=True, bf16_gates=False),
+)
 # Phase 6 also holds the kernel at phase 7b's forwards' own shapes:
 # qwen3-moe, jamba and musicgen heads at T = S = 2048.
 FLASH_ARMS_SHAPES = ((1, 32, 4, LM_T, LM_T, 128, True),
@@ -435,6 +506,11 @@ FLASH_WIDE_SHAPES = ((1, 16, 8, 4096, 4096, 256, True),
                      (1, 32, 8, 4096, 4096, 156, True),
                      (1, 96, 8, 4096, 4096, 192, True),
                      (1, 32, 32, 4096, 4096, 96, True))
+# And, in both dtypes at T = S = 4096, the head groupings phase 7c's
+# forwards give the kernel: granite-34b's 48 query heads on one KV head
+# and llama4-maverick's 40 on 8 (groups of 5), hd 128.
+FLASH_GROUPING_SHAPES = ((1, 48, 1, 4096, 4096, 128, True),
+                         (1, 40, 8, 4096, 4096, 128, True))
 # Phase 6 calls ops.flash_attention with the reference's block keywords
 # at stablelm's heads.
 FLASH_KEYWORDS_SHAPE = (1, 32, 8, 512, 512, 160, True)
@@ -1341,7 +1417,7 @@ def phase_globe(archive_dir: str, globe_dem) -> None:
 def brute_force_overlapping(rows, config) -> list:
     """``brute_force_screen`` over every pair of rows that share an
     instant, deduplicated: the all-pairs result, without the O(N^2 T)
-    global grid (782 rows over 8 hours would take minutes in numpy).
+    global grid (782 rows over 8 hours took minutes in numpy).
     Rows that never share an instant are never jointly valid, and with
     integer start times on the 1 s grid each pair's samples align
     exactly as on the global grid, so the records are the same."""
@@ -1400,7 +1476,7 @@ def phase_screen_workflow() -> dict:
     wf = TrackWorkflow(root, n_workers=8, tasks_per_message=4,
                        poll_interval=0.005, device="cuda", input="store",
                        store_target_points=8192, screen=True, **SCREEN_WF)
-    wf.generate_raw(n_files=8, scale=500)
+    wf.generate_raw(n_files=SCREEN_FILES, scale=500)
     mods = {"track_interp": track_interp, "agl_lookup": agl_lookup,
             "dynamic_rates": dynamic_rates,
             "encounter_screen": encounter_screen}
@@ -1554,7 +1630,7 @@ def phase_dag(barrier: dict) -> tuple[dict, dict]:
                        poll_interval=0.005, device="cuda", input="store",
                        store_target_points=8192, screen=True, mode="dag",
                        tracer=tracer, **SCREEN_WF)
-    wf.generate_raw(n_files=8, scale=500)
+    wf.generate_raw(n_files=SCREEN_FILES, scale=500)
     mods = {"track_interp": track_interp, "agl_lookup": agl_lookup,
             "dynamic_rates": dynamic_rates,
             "encounter_screen": encounter_screen}
@@ -1892,7 +1968,7 @@ def phase_flash() -> dict:
     cases += [(FLASH_MAIN_PATH_SHAPE, dt) for dt in both]
     cases += [(shape, torch.bfloat16) for shape in FLASH_ARMS_SHAPES]
     cases += [(shape, dt) for shape in FLASH_WIDE_SHAPES + FLASH_PADDED_SHAPES
-              for dt in both]
+              + FLASH_GROUPING_SHAPES for dt in both]
     res = {"per_shape": {}, "max_abs_err": 0.0}
     for (B, H, KV, T, S, hd, causal), dt in cases:
         q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
@@ -2597,11 +2673,12 @@ def rel_diff(a, b) -> float:
 
 
 def serve_and_profile(tag: str, cfg, params, rng, n_requests: int,
-                      n_rounds: int) -> dict:
+                      n_rounds: int, suffix: str = "") -> dict:
     """BatchedServer (``SERVE``'s slots and lengths) on the card: one
     warm-up request, then ``n_rounds`` gated rounds of ``n_requests``
     seeded requests of ``SERVE_NEW`` new tokens, each timed on its own,
-    then one engine step under torch.profiler."""
+    then one engine step under torch.profiler.  ``suffix`` ends each
+    line printed."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import BatchedServer, Request
@@ -2662,11 +2739,12 @@ def serve_and_profile(tag: str, cfg, params, rng, n_requests: int,
                  f"{rounds[-1]['step_ms']:.1f} ms (median; first "
                  f"{server.step_s[0] * 1e3:.1f} ms), admit (prefill of "
                  f"one prompt + splice) {rounds[-1]['admit_ms']:.1f} ms "
-                 f"(median)")
+                 f"(median)" + suffix)
     step_ms = [r["step_ms"] for r in rounds]
     say(tag, f"decode step over {n_rounds} rounds: median "
              f"{statistics.median(step_ms):.1f} ms, spread (max - min) / "
-             f"min {(max(step_ms) - min(step_ms)) / min(step_ms):.3f}")
+             f"min {(max(step_ms) - min(step_ms)) / min(step_ms):.3f}"
+             + suffix)
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2678,7 +2756,7 @@ def serve_and_profile(tag: str, cfg, params, rng, n_requests: int,
     say(tag, f"profiled decode step {step_prof_s * 1e3:.1f} ms wall, "
              f"device busy {busy_ms:.1f} ms (idle share "
              f"{1 - busy_ms / (step_prof_s * 1e3):.4f}); top: " + "; ".join(
-                 f"{k[:48]} {v:.1f} ms" for k, v in top))
+                 f"{k[:48]} {v:.1f} ms" for k, v in top) + suffix)
     return {"rounds": rounds, "step_ms": statistics.median(step_ms),
             "step_busy_ms": busy_ms,
             "tokens_per_s": statistics.median(r["tokens_per_s"]
@@ -2974,7 +3052,13 @@ def layerwise_bf16_vs_f32(cfg, params, batch) -> dict:
     bf16 weights widened to f32: {kind: (worst max|bf16 - f32| /
     max|f32|, sublayers held)}.  The router's weights are f32 and its
     input the same values in both, so no route flips, and one layer's
-    rounding does not pass on to the next."""
+    rounding does not pass on to the next.  An MoE sublayer's f32 twin
+    takes the bf16 weights as they are: its f32 products widen them
+    exactly, a chunk of experts at a time (layers.F32_CHUNK_BYTES), so
+    it is bitwise the twin on weights widened whole
+    (tests/test_torch_wide_configs.py::
+    test_chunked_moe_bf16_and_its_f32_twin), and no f32 copy of a
+    layer's experts is made: llama4-maverick's 128 would take 64.4 GB."""
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
     from repro_torch.models import ssm as S
@@ -2983,7 +3067,7 @@ def layerwise_bf16_vs_f32(cfg, params, batch) -> dict:
 
     def held(what, fn, h, p):
         got = fn(h, p)
-        p32 = _widened(p)
+        p32 = p if what == "moe" else _widened(p)
         rel = rel_diff(got, fn(h.float(), p32))
         del p32
         w, n = worst.get(what, (0.0, 0))
@@ -3033,6 +3117,181 @@ def decode_vs_forward(cfg, params, head: dict) -> tuple:
     return rel_diff(dec, full), dec, full
 
 
+def lm_params_on_card(cfg) -> tuple:
+    """Seed-0 weights drawn on the card by ``init_params``, with the
+    allocator's cache emptied first: (params, parameter count, GB,
+    seconds, peak GB allocated during the draw)."""
+    import torch
+    from repro_torch.models import model as M
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    return (params, n, gb, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def lm_batch(cfg, B: int, rng) -> dict:
+    """B rows of LM_T inputs: tokens drawn from the numpy generator
+    ``rng``, or for a stubbed frontend seeded embeds (a card generator
+    seeded 1) in the activation dtype."""
+    import numpy as np
+    import torch
+    dev = torch.device("cuda")
+    if cfg.frontend is not None:
+        gen = torch.Generator(device=dev).manual_seed(1)
+        return {"embeds": torch.randn(
+            (B, LM_T, cfg.d_model), generator=gen, device=dev).to(
+                getattr(torch, cfg.activation_dtype))}
+    return {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (B, LM_T)).astype(np.int32)).to(dev)}
+
+
+def lm_forward_pair(tag: str, cfg, params, batch: dict, bf16_gates: bool,
+                    gate, suffix: str = "") -> dict:
+    """A warm-up forward (xla: cuBLAS and the allocator), then the flash
+    forward with the flash counters zeroed just before and read just
+    after, then the xla forward, each timed and its peak memory read;
+    ``gate`` holds one sm90 launch per attention layer, the logits'
+    shape and finiteness and, where ``bf16_gates``, flash vs xla within
+    LM_REL_GATE."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.models import model as M
+    name = cfg.name
+    B = next(iter(batch.values())).shape[0]
+    n_tok = B * LM_T
+    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+    cfg_flash = dataclasses.replace(cfg, attention_impl="flash")
+
+    def timed_forward(c):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = M.forward(c, params, batch)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    _, warm_s = timed_forward(cfg)
+    del _
+    torch.cuda.reset_peak_memory_stats()
+    flash_mod.launches = 0
+    for r in flash_mod.launches_by_route:
+        flash_mod.launches_by_route[r] = 0
+    lf, flash_s = timed_forward(cfg_flash)
+    launches = flash_mod.launches
+    by_route = dict(flash_mod.launches_by_route)
+    peak_flash = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    lx, xla_s = timed_forward(cfg)
+    peak_xla = torch.cuda.max_memory_allocated()
+    rel = rel_diff(lf, lx)
+    finite = bool(torch.isfinite(lf).all() and torch.isfinite(lx).all())
+    # Token rows whose own max|flash - xla| reaches the gate's share of
+    # max|xla|: a routing flip moves some rows, a wrong kernel all.
+    row_rel = ((lf.float() - lx.float()).abs().amax(dim=-1)
+               / (lx.float().abs().max() + 1e-6))
+    rows_out = (row_rel >= LM_REL_GATE).float().mean().item()
+    shape = tuple(lf.shape)
+    del lf, lx, row_rel
+    note = ("gate " + str(LM_REL_GATE) if bf16_gates
+            else "not gated: bf16 routing/drift")
+    say(tag, f"{name} forward B={B} T={LM_T}: flash {flash_s:.3f}s "
+             f"({n_tok / flash_s:.1f} tokens/s, peak "
+             f"{peak_flash / 1e9:.2f} GB), xla {xla_s:.3f}s "
+             f"({n_tok / xla_s:.1f} tokens/s, peak {peak_xla / 1e9:.2f} "
+             f"GB), first (xla, warm-up) {warm_s:.3f}s; flash launches "
+             f"{launches} by route {by_route}; max|flash - xla| / max|xla| "
+             f"{rel:.3g} ({note}; token rows at or past {LM_REL_GATE}: "
+             f"{rows_out:.5f}); finite {finite}" + suffix)
+    gate(launches == n_attn and by_route == {"sm90": n_attn, "sm90_f32": 0},
+         f"{name}: flash forward launched the kernel {launches} times "
+         f"({by_route}), expected {n_attn}, all on the sm90 route")
+    gate(finite and shape == (B, LM_T, cfg.vocab_size),
+         f"{name}: forward logits shape {shape}, finite {finite}")
+    if bf16_gates:
+        gate(rel < LM_REL_GATE, f"{name}: flash and xla logits differ: "
+                                f"rel {rel}")
+    return {"B": B, "launches": launches, "launches_by_route": by_route,
+            "flash_xla_rel": rel, "flash_xla_rows_out": rows_out,
+            "forward_tokens_per_s": n_tok / flash_s,
+            "forward_xla_tokens_per_s": n_tok / xla_s,
+            "peak_gb": peak_flash / 1e9, "peak_xla_gb": peak_xla / 1e9}
+
+
+def lm_profiled_forward(tag: str, cfg, params, batch: dict,
+                        suffix: str = "") -> dict:
+    """One flash forward under torch.profiler: device busy ms, idle share,
+    device ms by kind of kernel and (MoE models, whose ranges need the
+    CPU side traced) by stage of the MoE layer, and the top kernels."""
+    import dataclasses
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import model as M
+    name = cfg.name
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers)
+                if cfg.layer_kind(i) != "rwkv6")
+    cfg_flash = dataclasses.replace(cfg, attention_impl="flash")
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if n_moe
+                                      else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        M.forward(cfg_flash, params, batch)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    busy = _device_busy(prof)
+    busy_ms = sum(busy.values())
+    split = _kernel_split(busy)
+    stages = _stage_device_ms(prof) if n_moe else {}
+    top = sorted(busy.items(), key=lambda kv: -kv[1])[:8]
+    del prof
+    idle = 1 - busy_ms / (prof_s * 1e3)
+    say(tag, f"{name} profiled flash forward {prof_s * 1e3:.1f} ms wall "
+             f"({'CPU and ' if n_moe else ''}CUDA traced), device busy "
+             f"{busy_ms:.1f} ms (idle share {idle:.4f}); by kind: "
+             + ", ".join(f"{k} {v:.1f} ms ({v / busy_ms:.4f})"
+                         for k, v in split.items()) + suffix)
+    if stages:
+        say(tag, f"{name} MoE stages ({n_moe} layers), device ms of the "
+                 f"kernels each launched: " + ", ".join(
+                     f"{k} {v:.1f}" for k, v in stages.items()) + suffix)
+    say(tag, f"{name} top kernels: " + "; ".join(
+        f"{k[:64]} {v:.1f} ms" for k, v in top) + suffix)
+    return {"forward_busy_ms": busy_ms, "forward_idle_share": idle,
+            "forward_split_ms": split, "moe_stages_ms": stages}
+
+
+def lm_decode_steps(tag: str, cfg, params, head: dict,
+                    suffix: str = "") -> float:
+    """Median ms of ARMS_DECODE_STEPS decode steps, each timed on its own,
+    on a cache prefilled with ``head``'s first LM_DECODE_T positions
+    (configs the reference does not serve)."""
+    import torch
+    from repro_torch.models import model as M
+    _, cache = M.prefill(cfg, params, {k: v[:, :LM_DECODE_T]
+                                       for k, v in head.items()},
+                         cache_len=LM_DECODE_T + 4)
+    last = {k: v[:, LM_DECODE_T:] for k, v in head.items()}
+    step_s = []
+    for _ in range(ARMS_DECODE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, cache = M.decode_step(cfg, params, cache, last)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    step_ms = statistics.median(step_s) * 1e3
+    B = next(iter(head.values())).shape[0]
+    say(tag, f"{cfg.name} decode step on {B} rows: median {step_ms:.1f} ms "
+             f"over {ARMS_DECODE_STEPS} (first {step_s[0] * 1e3:.1f} ms)"
+             + suffix)
+    return step_ms
+
+
 def phase_lm_arms() -> dict:
     """qwen3-moe, rwkv6, jamba (depth cut) and musicgen (embeds input) at
     full width on the card, one model at a time (``LM_ARMS``): forward
@@ -3048,12 +3307,8 @@ def phase_lm_arms() -> dict:
     import dataclasses
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_arch
-    from repro_torch.kernels import flash_attention as flash_mod
-    from repro_torch.models import model as M
 
-    dev = torch.device("cuda")
     failures, res = [], {}
 
     def gate(ok: bool, what: str) -> None:
@@ -3061,28 +3316,16 @@ def phase_lm_arms() -> dict:
             failures.append(what)
             say("arms", f"GATE FAILED: {what}")
 
-    def params_on_card(cfg):
-        t0 = time.perf_counter()
-        params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                               dev)
-        torch.cuda.synchronize()
-        n = sum(t.numel() for t in _leaves(params))
-        gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
-        return params, n, gb, time.perf_counter() - t0
-
     for arm in LM_ARMS:
         name, B, cf = arm["arch"], arm["B"], arm["cf"]
         t_model = time.perf_counter()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
         cfg = dataclasses.replace(get_arch(name), **arm["cut"])
-        cfg_flash = dataclasses.replace(cfg, attention_impl="flash")
         n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
         kinds = {k: sum(cfg.layer_kind(i) == k for i in range(cfg.n_layers))
                  for k in dict.fromkeys(cfg.block_pattern)}
         n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers)
                     if cfg.layer_kind(i) != "rwkv6")
-        params, n_params, gb, init_s = params_on_card(cfg)
+        params, n_params, gb, init_s, _ = lm_params_on_card(cfg)
         cut = (f" (cut from {get_arch(name).n_layers} layers)"
                if arm["cut"] else "")
         say("arms", f"{name}: {cfg.n_layers} layers{cut} {kinds}, {n_moe} "
@@ -3094,65 +3337,11 @@ def phase_lm_arms() -> dict:
                     f"parameters, {gb:.2f} GB on the card, drawn in "
                     f"{init_s:.2f}s")
         rng = np.random.default_rng(0)
-        if cfg.frontend is not None:
-            gen = torch.Generator(device=dev).manual_seed(1)
-            batch = {"embeds": torch.randn(
-                (B, LM_T, cfg.d_model), generator=gen, device=dev).to(
-                    getattr(torch, cfg.activation_dtype))}
-        else:
-            batch = {"tokens": torch.from_numpy(rng.integers(
-                0, cfg.vocab_size, (B, LM_T)).astype(np.int32)).to(dev)}
+        batch = lm_batch(cfg, B, rng)
         head = {k: v[:, :LM_DECODE_T + 1] for k, v in batch.items()}
-        n_tok = B * LM_T
-
-        def timed_forward(c):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = M.forward(c, params, batch)
-            torch.cuda.synchronize()
-            return out, time.perf_counter() - t0
-
-        _, warm_s = timed_forward(cfg)          # cuBLAS and allocator warm-up
-        del _
-        torch.cuda.reset_peak_memory_stats()
-        flash_mod.launches = 0
-        for r in flash_mod.launches_by_route:
-            flash_mod.launches_by_route[r] = 0
-        lf, flash_s = timed_forward(cfg_flash)
-        launches = flash_mod.launches
-        by_route = dict(flash_mod.launches_by_route)
-        peak_flash = torch.cuda.max_memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        lx, xla_s = timed_forward(cfg)
-        peak_xla = torch.cuda.max_memory_allocated()
-        rel = rel_diff(lf, lx)
-        finite = bool(torch.isfinite(lf).all() and torch.isfinite(lx).all())
-        # Token rows whose own max|flash - xla| reaches the gate's share
-        # of max|xla|: a routing flip moves some rows, a wrong kernel all.
-        row_rel = ((lf.float() - lx.float()).abs().amax(dim=-1)
-                   / (lx.float().abs().max() + 1e-6))
-        rows_out = (row_rel >= LM_REL_GATE).float().mean().item()
-        shape = tuple(lf.shape)
-        del lf, lx, row_rel
-        say("arms", f"{name} forward B={B} T={LM_T}: flash {flash_s:.3f}s "
-                    f"({n_tok / flash_s:.1f} tokens/s, peak "
-                    f"{peak_flash / 1e9:.2f} GB), xla {xla_s:.3f}s "
-                    f"({n_tok / xla_s:.1f} tokens/s, peak "
-                    f"{peak_xla / 1e9:.2f} GB), first (xla, warm-up) "
-                    f"{warm_s:.3f}s; flash launches {launches} by route "
-                    f"{by_route}; max|flash - xla| / max|xla| {rel:.3g} "
-                    f"({'gate ' + str(LM_REL_GATE) if arm['bf16_gates'] else 'not gated: bf16 routing/drift'}; "
-                    f"token rows at or past {LM_REL_GATE}: {rows_out:.5f}); "
-                    f"finite {finite}")
-        gate(launches == n_attn and by_route == {"sm90": n_attn,
-                                                 "sm90_f32": 0},
-             f"{name}: flash forward launched the kernel {launches} times "
-             f"({by_route}), expected {n_attn}, all on the sm90 route")
-        gate(finite and shape == (B, LM_T, cfg.vocab_size),
-             f"{name}: forward logits shape {shape}, finite {finite}")
-        if arm["bf16_gates"]:
-            gate(rel < LM_REL_GATE, f"{name}: flash and xla logits differ: "
-                                    f"rel {rel}")
+        row = {"params": n_params, "gb": gb, "n_layers": cfg.n_layers}
+        row.update(lm_forward_pair("arms", cfg, params, batch,
+                                   arm["bf16_gates"], gate))
         layer_rel = None
         if n_attn:
             layer_rel, n_held = layerwise_flash_vs_xla(cfg, params, batch)
@@ -3182,34 +3371,7 @@ def phase_lm_arms() -> dict:
                          for k, (w, _) in sub_rel.items()),
                  f"{name}: a bf16 sublayer differs from f32: {sub_rel}, "
                  f"expected layers {want}")
-
-        # Where a flash forward's device time goes: by kernel, by kind
-        # of kernel, and (MoE; its ranges need the CPU side traced) by
-        # stage of the layer.
-        acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if n_moe
-                                          else [])
-        with profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            M.forward(cfg_flash, params, batch)
-            torch.cuda.synchronize()
-            prof_s = time.perf_counter() - t0
-        busy = _device_busy(prof)
-        busy_ms = sum(busy.values())
-        split = _kernel_split(busy)
-        stages = _stage_device_ms(prof) if n_moe else {}
-        top = sorted(busy.items(), key=lambda kv: -kv[1])[:8]
-        del prof
-        say("arms", f"{name} profiled flash forward {prof_s * 1e3:.1f} ms "
-                    f"wall ({'CPU and ' if n_moe else ''}CUDA traced), "
-                    f"device busy {busy_ms:.1f} ms; by kind: " + ", ".join(
-                        f"{k} {v:.1f} ms ({v / busy_ms:.4f})"
-                        for k, v in split.items()))
-        if stages:
-            say("arms", f"{name} MoE stages ({n_moe} layers), device ms of "
-                        f"the kernels each launched: " + ", ".join(
-                            f"{k} {v:.1f}" for k, v in stages.items()))
-        say("arms", f"{name} top kernels: " + "; ".join(
-            f"{k[:64]} {v:.1f} ms" for k, v in top))
+        row.update(lm_profiled_forward("arms", cfg, params, batch))
 
         c_dec = (dataclasses.replace(cfg, capacity_factor=cf) if cf
                  else cfg)
@@ -3221,16 +3383,9 @@ def phase_lm_arms() -> dict:
         if arm["bf16_gates"]:
             gate(rel_dec < LM_DECODE_GATE,
                  f"{name}: decode disagrees with forward: rel {rel_dec}")
-        row = {"params": n_params, "gb": gb, "n_layers": cfg.n_layers,
-               "launches": launches, "launches_by_route": by_route,
-               "flash_xla_rel": rel, "flash_xla_rows_out": rows_out,
-               "flash_xla_layer_rel": layer_rel, "decode_rel_bf16": rel_dec,
-               "sublayer_bf16_f32_rel": {k: w for k, (w, _) in
-                                         sub_rel.items()},
-               "forward_tokens_per_s": n_tok / flash_s,
-               "forward_xla_tokens_per_s": n_tok / xla_s,
-               "peak_gb": peak_flash / 1e9, "forward_busy_ms": busy_ms,
-               "forward_split_ms": split, "moe_stages_ms": stages}
+        row.update(flash_xla_layer_rel=layer_rel, decode_rel_bf16=rel_dec,
+                   sublayer_bf16_f32_rel={k: w for k, (w, _) in
+                                          sub_rel.items()})
         if arm["serve"]:
             row.update(serve_and_profile("arms", cfg, params, rng,
                                          ARMS_SERVE_REQUESTS,
@@ -3238,23 +3393,7 @@ def phase_lm_arms() -> dict:
         else:
             # No server (the reference refuses frontends): decode steps
             # on a prefilled cache, timed one by one.
-            _, cache = M.prefill(cfg, params, {k: v[:, :LM_DECODE_T]
-                                               for k, v in head.items()},
-                                 cache_len=LM_DECODE_T + 4)
-            last = {k: v[:, LM_DECODE_T:] for k, v in head.items()}
-            step_s = []
-            for _ in range(ARMS_DECODE_STEPS):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                _, cache = M.decode_step(cfg, params, cache, last)
-                torch.cuda.synchronize()
-                step_s.append(time.perf_counter() - t0)
-            row["step_ms"] = statistics.median(step_s) * 1e3
-            say("arms", f"{name} decode step on {B} rows: median "
-                        f"{row['step_ms']:.1f} ms over "
-                        f"{ARMS_DECODE_STEPS} (first {step_s[0] * 1e3:.1f}"
-                        f" ms)")
-            del cache
+            row["step_ms"] = lm_decode_steps("arms", cfg, params, head)
         # prefill + decode against forward in f32 at full width, where
         # rounding cannot flip a route: on the bf16 weights widened where
         # the whole depth fits in f32, else on an f32 draw of
@@ -3270,8 +3409,7 @@ def phase_lm_arms() -> dict:
         del batch
         if not widened:
             del params
-            torch.cuda.empty_cache()
-            params, _, gb32, _ = params_on_card(c32)
+            params, _, gb32, _, _ = lm_params_on_card(c32)
         rel32, dec32, full32 = decode_vs_forward(c32, params, {
             k: v.float() if v.is_floating_point() else v
             for k, v in head.items()})
@@ -3309,6 +3447,208 @@ def phase_lm_arms() -> dict:
         raise AssertionError("phase 7b: " + "; ".join(failures))
     return res
 
+
+def routed_decode_vs_forward(cfg, params, head: dict) -> dict:
+    """:func:`decode_vs_forward` with each MoE layer's expert choices
+    recorded on both paths (``layers._route`` wrapped for the three
+    calls).  A row's decode logits at position T depend on token T's
+    choice in every MoE layer and on tokens 0 .. T-1's choices in the
+    MoE layers that an attention layer reads after them; rows where all
+    of those match are "routed alike".  Returns the tokens routed apart
+    (every position of every MoE layer), the rows routed alike, and rel
+    over those rows."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    T = LM_DECODE_T
+    B = next(iter(head.values())).shape[0]
+    picks = []
+    route = L._route
+
+    def recording(xg, router, top_k, cap):
+        out = route(xg, router, top_k, cap)
+        picks.append(out[1].reshape(B, -1, top_k))
+        return out
+
+    L._route = recording
+    try:
+        _, cache = M.prefill(cfg, params, {k: v[:, :T] for k, v in
+                                           head.items()}, cache_len=T + 4)
+        dec, _ = M.decode_step(cfg, params, cache,
+                               {k: v[:, T:] for k, v in head.items()})
+        full = M.forward(cfg, params, head)[:, T].float()
+    finally:
+        L._route = route
+    dec = dec[:, 0].float()
+    layers = [i for i in range(cfg.n_layers) if cfg.is_moe_layer(i)]
+    n = len(layers)
+    if len(picks) != 3 * n:
+        raise AssertionError(f"recorded {len(picks)} routings, expected "
+                             f"3 x {n} MoE layers")
+    pre, one, fwd = picks[:n], picks[n:2 * n], picks[2 * n:]
+    last_attn = max(i for i in range(cfg.n_layers)
+                    if cfg.layer_kind(i) == "attn")
+    apart = sum(int((f[:, :T] != p).any(-1).sum() + (f[:, T] != o[:, 0])
+                    .any(-1).sum()) for p, o, f in zip(pre, one, fwd))
+    alike = torch.ones(B, dtype=torch.bool, device=dec.device)
+    for layer, p, o, f in zip(layers, pre, one, fwd):
+        alike &= (f[:, T] == o[:, 0]).all(-1)
+        if layer < last_attn:
+            alike &= (f[:, :T] == p).all(-1).all(-1)
+    rows = int(alike.sum())
+    return {"tokens_apart": apart, "tokens": B * (T + 1) * n,
+            "rows_alike": rows, "rows": B,
+            "rel": rel_diff(dec[alike], full[alike]) if rows else None}
+
+
+def phase_lm_wide(card: str) -> dict:
+    """pixtral-12b, granite-34b, nemotron-4-340b (depth cut) and
+    llama4-maverick (depth cut) at full width on the card, one model at
+    a time (``LM_WIDE``): forward flash vs xla with the flash counters
+    zeroed just before and read just after (one sm90 launch per
+    attention layer) and its device time by kind of kernel, the dense
+    stacks' whole-model bf16 gates; for llama4 each attention layer's
+    flash output against xla's on the same input, its MoE sublayer
+    against its f32 twin and its prefill + decode against forward on
+    the tokens routed alike; and BatchedServer rounds where the
+    reference serves the config.  Every line of numbers ends with the card and its power
+    limit.  Every gate of every model is checked; the phase fails at its
+    end if any did not hold."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import layers as L
+
+    failures, res = [], {}
+    sfx = f" [{card}]"
+
+    def gate(ok: bool, what: str) -> None:
+        if not ok:
+            failures.append(what)
+            say("lm-wide", f"GATE FAILED: {what}")
+
+    for arm in LM_WIDE:
+        name, B, bf16_gates = arm["arch"], arm["B"], arm["bf16_gates"]
+        t_model = time.perf_counter()
+        full = get_arch(name)
+        cfg = dataclasses.replace(full, **arm["cut"])
+        n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+        n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+        params, n_params, gb, init_s, init_peak = lm_params_on_card(cfg)
+        cut = (f" (cut from {full.n_layers} layers: {full.param_count() * 2 / 1e9:.1f} GB whole)"
+               if arm["cut"] else "")
+        moe = (f", {n_moe} MoE ({cfg.n_experts} experts, top {cfg.top_k}, "
+               f"d_ff {cfg.d_ff} each)" if n_moe else "")
+        say("lm-wide", f"{name}: {cfg.n_layers} layers{cut}{moe}, d_model "
+                       f"{cfg.d_model}, heads {cfg.n_heads} (kv "
+                       f"{cfg.n_kv_heads}, hd {cfg.head_dim_}), d_ff "
+                       f"{cfg.d_ff}, {cfg.activation}"
+                       f"{' gated' if cfg.gated_mlp else ''}, vocab "
+                       f"{cfg.vocab_size}, input "
+                       f"{'embeds' if cfg.frontend else 'tokens'}: "
+                       f"{n_params} parameters, {gb:.2f} GB on the card, "
+                       f"drawn in {init_s:.2f}s (peak {init_peak:.2f} GB)"
+                       + sfx)
+        rng = np.random.default_rng(0)
+        batch = lm_batch(cfg, B, rng)
+        head = {k: v[:, :LM_DECODE_T + 1] for k, v in batch.items()}
+        row = {"params": n_params, "gb": gb, "n_layers": cfg.n_layers,
+               "cut_from": full.n_layers if arm["cut"] else None,
+               "init_peak_gb": init_peak}
+        row.update(lm_forward_pair("lm-wide", cfg, params, batch,
+                                   bf16_gates, gate, sfx))
+        if not bf16_gates:
+            # Flash against xla layer by layer where the logits are not
+            # held whole: an MoE route flipped by one layer's rounding
+            # does not pass on to the next here.
+            t0 = time.perf_counter()
+            layer_rel, n_held = layerwise_flash_vs_xla(cfg, params, batch)
+            say("lm-wide", f"{name} attention layers fed the xla forward's "
+                           f"input, flash vs xla: worst rel {layer_rel:.3g} "
+                           f"over {n_held} layers (gate {LM_REL_GATE}); "
+                           f"{time.perf_counter() - t0:.1f}s" + sfx)
+            gate(n_held == n_attn and layer_rel < LM_REL_GATE,
+                 f"{name}: an attention layer's flash and xla outputs "
+                 f"differ: rel {layer_rel} over {n_held} layers")
+            row["flash_xla_layer_rel"] = layer_rel
+        if n_moe:
+            # The f32 twin of each MoE sublayer on the same input and
+            # weights, as phase 7b's.  128 widened experts (64.4 GB of
+            # f32 beside 36.9 GB of bf16) cannot exist whole: each f32
+            # product of layers.moe widens one chunk of experts at a
+            # time.  Given the dispatch, each expert's FFN is
+            # independent of the others, and the dispatch and combine
+            # are exact 0/1 products, so the chunks give the values of
+            # the twin on weights widened whole.
+            t0 = time.perf_counter()
+            sub = layerwise_bf16_vs_f32(cfg, params, batch)
+            w, n = sub["moe"]
+            gs = L._largest_divisor_leq(B * LM_T, cfg.moe_group_size)
+            rows = B * LM_T // gs * max(int(
+                cfg.capacity_factor * cfg.top_k * gs / cfg.n_experts), 1)
+            chunk = L.experts_per_chunk(cfg.n_experts, cfg.d_model,
+                                        2 if cfg.gated_mlp else 1, cfg.d_ff,
+                                        rows)
+            say("lm-wide", f"{name} MoE sublayers fed the bf16 forward's "
+                           f"input, bf16 vs the f32 twin on the same "
+                           f"weights ({chunk} experts a chunk): worst rel "
+                           f"{w:.3g} over {n} layers (gate "
+                           f"{SUBLAYER_BF16_GATE['moe']}); "
+                           f"{time.perf_counter() - t0:.1f}s" + sfx)
+            gate(set(sub) == {"moe"} and n == n_moe
+                 and w < SUBLAYER_BF16_GATE["moe"],
+                 f"{name}: a bf16 MoE sublayer differs from its f32 twin: "
+                 f"{sub}, expected {n_moe} layers")
+            row["sublayer_bf16_f32_rel"] = {"moe": w}
+        row.update(lm_profiled_forward("lm-wide", cfg, params, batch, sfx))
+        del batch
+        if not n_moe:
+            rel_dec, _, _ = decode_vs_forward(cfg, params, head)
+            note = ("gate " + str(LM_DECODE_GATE) if bf16_gates
+                    else "not gated: bf16 drift")
+            say("lm-wide", f"{name} prefill({LM_DECODE_T}) + decode_step vs "
+                           f"forward({LM_DECODE_T + 1}), bf16: rel "
+                           f"{rel_dec:.3g} ({note})" + sfx)
+            if bf16_gates:
+                gate(rel_dec < LM_DECODE_GATE,
+                     f"{name}: decode disagrees with forward: rel {rel_dec}")
+            row["decode_rel_bf16"] = rel_dec
+        else:
+            # No f32 run: one f32 superblock of llama4 is 73.7 GB of
+            # weights.  bf16 at a capacity factor at which no token drops
+            # (each expert's capacity a whole group), the logits held on
+            # the rows whose expert choices match on both paths.
+            c_dec = dataclasses.replace(
+                cfg, capacity_factor=float(cfg.n_experts) / cfg.top_k)
+            r = routed_decode_vs_forward(c_dec, params, head)
+            rel_txt = "-" if r["rel"] is None else f"{r['rel']:.3g}"
+            say("lm-wide", f"{name} prefill({LM_DECODE_T}) + decode_step vs "
+                           f"forward({LM_DECODE_T + 1}), bf16, "
+                           f"capacity_factor {c_dec.capacity_factor} (no "
+                           f"drops): {r['tokens_apart']} of {r['tokens']} "
+                           f"token choices routed apart; {r['rows_alike']} "
+                           f"of {r['rows']} rows routed alike, on them rel "
+                           f"{rel_txt} (gate {LM_DECODE_GATE})" + sfx)
+            gate(r["rows_alike"] > 0 and r["rel"] < LM_DECODE_GATE,
+                 f"{name}: decode disagrees with forward on the rows routed "
+                 f"alike: {r}")
+            row.update(decode_rel_bf16=r["rel"], decode_routing=r)
+        if arm["serve"]:
+            row.update(serve_and_profile(
+                "lm-wide", cfg, params, rng, ARMS_SERVE_REQUESTS,
+                ARMS_SERVE_ROUNDS, sfx))
+        else:
+            row["step_ms"] = lm_decode_steps("lm-wide", cfg, params, head,
+                                             sfx)
+        del params, head
+        torch.cuda.empty_cache()
+        res[name] = row
+        say("lm-wide", f"{name} done in {time.perf_counter() - t_model:.1f}s"
+                       + sfx)
+    if failures:
+        raise AssertionError("phase 7c: " + "; ".join(failures))
+    return res
 
 def zipf_store(root: str, vocab: int, n_shards: int,
                tokens_per_shard_mean: int, seed: int = 0) -> list:
@@ -3596,14 +3936,45 @@ MESH_LOSS_RTOL = 1e-3        # mesh Trainer against phase 10's, a step
 MESH_DRYRUN_TIMEOUT_S = 600
 
 
-def phase_mesh(train: dict, card: str) -> dict:
-    """Phase 11: (a) the dry run's sweep in a subprocess without the card
-    (the fake process group cannot share a process with NCCL), started
-    first; (b) the one-GPU mesh on the card while it runs; then (a)'s
-    records read and held."""
+def start_dryrun() -> dict:
+    """Phase 11 (a): the dry run's sweep (every cell, one job a core)
+    started in a subprocess that sees no card (the fake process group
+    cannot share a process with NCCL); :func:`phase_mesh` waits for it
+    and holds its records.  main starts it before phase 10, whose
+    device-bound steps leave the host's cores to it."""
+    import tempfile
+    os.makedirs(WORK, exist_ok=True)
+    dr_dir = tempfile.mkdtemp(prefix="dryrun_", dir=WORK)
+    jobs = os.cpu_count() or 1
+    env = dict(os.environ, PYTHONPATH=SRC, CUDA_VISIBLE_DEVICES="")
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+           "--multi-pod", "both", "--jobs", str(jobs), "--exec-backend",
+           "processes", "--out", dr_dir]
+    log = os.path.join(WORK, "dryrun.log")
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        proc = subprocess.Popen(cmd, env=env, cwd=HERE, stdout=f,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+    return {"proc": proc, "dir": dr_dir, "log": log, "jobs": jobs,
+            "t0": t0}
+
+
+def stop_dryrun(dry: dict) -> None:
+    """Kill the dry run's process group (its worker processes with it) if
+    it still runs."""
+    import signal
+    if dry["proc"].poll() is None:
+        os.killpg(dry["proc"].pid, signal.SIGKILL)
+        dry["proc"].wait()
+
+
+def phase_mesh(train: dict, card: str, dry: dict) -> dict:
+    """Phase 11: (b) the one-GPU mesh on the card while (a), the dry run
+    ``dry`` (:func:`start_dryrun`), runs on; then (a)'s records read and
+    held."""
     import gc
     import glob
-    import tempfile
     import torch
     import torch.distributed as dist
     from repro_torch.configs import ARCHS, shapes_for
@@ -3621,18 +3992,8 @@ def phase_mesh(train: dict, card: str) -> dict:
     flash_mod.launches = 0
     out: dict = {}
 
-    # (a) started now, read at the end
-    dr_dir = tempfile.mkdtemp(prefix="dryrun_", dir=WORK)
-    jobs = os.cpu_count() or 1
-    env = dict(os.environ, PYTHONPATH=SRC, CUDA_VISIBLE_DEVICES="")
-    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
-           "--multi-pod", "both", "--jobs", str(jobs), "--exec-backend",
-           "processes", "--out", dr_dir]
-    t_dry = time.perf_counter()
-    dry_log = os.path.join(WORK, "dryrun.log")
-    with open(dry_log, "w") as f:
-        dry = subprocess.Popen(cmd, env=env, cwd=HERE, stdout=f,
-                               stderr=subprocess.STDOUT)
+    # (a) started before phase 10, read at the end
+    dr_dir, jobs, proc = dry["dir"], dry["jobs"], dry["proc"]
     try:
         out["card"] = _mesh_on_card(train, card)
     finally:
@@ -3641,17 +4002,16 @@ def phase_mesh(train: dict, card: str) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         try:
-            dry.wait(timeout=MESH_DRYRUN_TIMEOUT_S)
+            proc.wait(timeout=MESH_DRYRUN_TIMEOUT_S)
         except subprocess.TimeoutExpired:
-            dry.kill()
-            dry.wait()
+            stop_dryrun(dry)
             raise
-    dry_s = time.perf_counter() - t_dry
-    with open(dry_log) as f:
+    dry_s = time.perf_counter() - dry["t0"]
+    with open(dry["log"]) as f:
         log = f.read()
-    if dry.returncode != 0:
+    if proc.returncode != 0:
         print(log[-4000:])
-        raise AssertionError(f"the dry run exited {dry.returncode}")
+        raise AssertionError(f"the dry run exited {proc.returncode}")
 
     recs = [json.load(open(p)) for p in sorted(glob.glob(
         os.path.join(dr_dir, "*.json")))]
@@ -3666,7 +4026,8 @@ def phase_mesh(train: dict, card: str) -> dict:
         raise AssertionError(f"dry run: {len(recs)} of {want_cells} cells "
                              f"written, not ok: {bad}")
     say("mesh", f"dry run: {len(recs)} (arch x shape x mesh) cells ok in "
-                f"{dry_s:.1f}s wall ({jobs} processes, no card); roofline "
+                f"{dry_s:.1f}s wall ({jobs} processes, no card, beside "
+                f"phases 10 and 11); roofline "
                 f"at the H100 SXM datasheet constants ({PEAK_FLOPS_BF16:.3g}"
                 f" FLOP/s bf16, {HBM_BW:.3g} B/s HBM, {LINK_BW:.3g} B/s a "
                 f"link), planning estimates from traced graphs, not "
@@ -3702,7 +4063,8 @@ def phase_mesh(train: dict, card: str) -> dict:
     out["launches"] = launches
     out["phase_s"] = time.perf_counter() - t_phase
     say("mesh", f"phase 11 in {out['phase_s']:.1f}s (dry run "
-                f"{dry_s:.1f}s beside the card's part); {card}")
+                f"{dry_s:.1f}s from its start before phase 10, beside "
+                f"phases 10 and 11's card part); {card}")
     say("mesh", "summary " + json.dumps(out))
     return out
 
@@ -4060,21 +4422,37 @@ def main() -> int:
     globe = SyntheticGlobeDEM(cells_per_deg=120)
     say("setup", f"GLOBE-resolution DEM generated in "
                  f"{time.perf_counter() - t0:.2f}s")
-    results = phase_kernels(globe)
-    screen = phase_screen_kernels(screen_floor)
-    launches, archive_dir, zip_shapes = phase_workflow()
-    phase_globe(archive_dir, globe)
-    screen_launches, screen_shapes, barrier = phase_screen_workflow()
-    dag_launches, dag_shapes, dag_trace = phase_dag(barrier)
-    phase_trace(dag_trace)
-    flash = phase_flash()
-    lm = phase_lm()
-    lm_f32 = phase_lm_f32()
-    arms = phase_lm_arms()
-    bench = phase_bench()
-    serving = phase_serving(card, globe)
-    train = phase_train()
-    phase_mesh(train, card)
+    phase_s: dict = {}
+
+    def timed(label: str, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[label] = time.perf_counter() - t0
+        return out
+
+    results = timed("1 kernels", phase_kernels, globe)
+    screen = timed("2 screen kernels", phase_screen_kernels, screen_floor)
+    launches, archive_dir, zip_shapes = timed("3 workflow", phase_workflow)
+    timed("4 globe", phase_globe, archive_dir, globe)
+    screen_launches, screen_shapes, barrier = timed(
+        "5 screen workflow", phase_screen_workflow)
+    dag_launches, dag_shapes, dag_trace = timed("5b dag", phase_dag, barrier)
+    timed("5c trace", phase_trace, dag_trace)
+    flash = timed("6 flash", phase_flash)
+    lm = timed("7 lm", phase_lm)
+    lm_f32 = timed("7 lm f32", phase_lm_f32)
+    arms = timed("7b arms", phase_lm_arms)
+    wide = timed("7c wide", phase_lm_wide, card)
+    bench = timed("8 bench", phase_bench)
+    serving = timed("9 serving", phase_serving, card, globe)
+    dry = start_dryrun()
+    try:
+        train = timed("10 train", phase_train)
+        timed("11 mesh", phase_mesh, train, card, dry)
+    finally:
+        stop_dryrun(dry)
+    say("time", "wall s by phase: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in phase_s.items()))
     top_shapes = phase_workflow_shapes({"zip workflow": zip_shapes,
                                         "store+screen workflow":
                                             screen_shapes,
@@ -4176,6 +4554,8 @@ def main() -> int:
         "lm_f32": lm_f32,
         "launches_lm_arms": {n: r["launches"] for n, r in arms.items()},
         "lm_arms": arms,
+        "launches_lm_wide": {n: r["launches"] for n, r in wide.items()},
+        "lm_wide": wide,
     })
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))

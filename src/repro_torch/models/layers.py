@@ -569,6 +569,53 @@ def _route(xg: torch.Tensor, router: torch.Tensor, top_k: int,
     return gate_vals * keep, gate_idx, pos, keep
 
 
+# The f32 transients of products too large to widen whole.  ``einsum``
+# with an f32 output widens both operands, so :func:`moe` runs its
+# expert products a chunk of experts at a time and the model's
+# unembedding its logits a slice of the vocabulary at a time, each
+# chunk's f32 bytes (as its caller counts them) at most this many, one
+# expert or column at the least.  A chunk reads only its own rows of the
+# weights and writes only its own rows of the output, so the chunks give
+# the values one product gives.  Without them llama4-maverick's 128
+# experts would widen to 64.4 GB of f32 beside 36.9 GB of bf16 weights,
+# and nemotron-4-340b's 18432 x 256000 table to 18.9 GB.
+F32_CHUNK_BYTES = 1 << 31
+
+
+def per_chunk(n: int, nbytes_each: int) -> int:
+    """How many of ``n`` items of ``nbytes_each`` f32 bytes a chunk
+    holds within ``F32_CHUNK_BYTES``: at least one, at most ``n``."""
+    return max(1, min(n, F32_CHUNK_BYTES // nbytes_each))
+
+
+def expert_bytes(d_model: int, z: int, d_ff: int, rows: int) -> int:
+    """The f32 bytes one expert adds to a chunk of :func:`moe`'s two
+    products: their operands widened (the expert's input (rows, D), wi
+    (D, z F), wo (F, D)) and their outputs ((rows, z F), (rows, D))."""
+    return 4 * (rows * d_model + d_model * z * d_ff + d_ff * d_model
+                + rows * z * d_ff + rows * d_model)
+
+
+def experts_per_chunk(n_experts: int, d_model: int, z: int, d_ff: int,
+                      rows: int) -> int:
+    """Experts a chunk of :func:`moe`'s expert products holds."""
+    return per_chunk(n_experts, expert_bytes(d_model, z, d_ff, rows))
+
+
+def _expert_ffn(xe: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
+                z: int, act, dtype: torch.dtype) -> torch.Tensor:
+    """The FFN of a run of experts: xe (e, C, D), wi (e, D, z F), wo (e,
+    F, D) -> (e, C, D) in ``dtype``, both products in f32."""
+    e, C = xe.shape[0], xe.shape[1]
+    Fd = wo.shape[1]
+    h = einsum("ecd,edf->ecf", xe, wi, F32).reshape(e, C, z, Fd)
+    if z == 2:
+        h = act(h[:, :, 0]) * h[:, :, 1]
+    else:
+        h = act(h[:, :, 0])
+    return einsum("ecf,efd->ecd", h.to(dtype), wo, F32).to(dtype)
+
+
 def moe(x: torch.Tensor, p: dict, *, n_experts: int, top_k: int,
         activation: str, capacity_factor: float = 1.25,
         group_size: int = 2048) -> torch.Tensor:
@@ -590,6 +637,10 @@ def moe(x: torch.Tensor, p: dict, *, n_experts: int, top_k: int,
     the dispatch mask, both in ``x.dtype``; its 0/1 factors keep the
     result exact.  The reference's ``_constrain`` sharding hints
     have no counterpart: without a device mesh they do nothing.
+
+    The expert products run :func:`experts_per_chunk` experts at a time
+    (DTensors whole): the same f32 products of the same operands as one
+    product over all experts.
 
     The stages run under ``torch.profiler.record_function`` labels
     (``moe.route``, ``moe.dispatch``, ``moe.experts``, ``moe.combine``)
@@ -614,19 +665,21 @@ def moe(x: torch.Tensor, p: dict, *, n_experts: int, top_k: int,
         comb = disp * gate_e[..., None]
         xin = einsum("gsec,gsd->gecd", disp, xg, F32).to(x.dtype)
     with record_function("moe.experts"):
-        # Expert FFN as 3-D batched products over (E, G*cap, ...).
+        # Expert FFN as 3-D batched products over (E, G*cap, ...), a
+        # chunk of experts at a time.
         z = p["wi"].shape[2]
         Fd = p["wi"].shape[3]
         xe = xin.transpose(0, 1).reshape(E, G * cap, D)
         wi = p["wi"].reshape(E, D, z * Fd)
-        h = einsum("ecd,edf->ecf", xe, wi, F32).reshape(E, G * cap, z, Fd)
         act = activation_fn(activation)
-        if z == 2:
-            h = act(h[:, :, 0]) * h[:, :, 1]
+        ec = (E if is_dtensor(xe) or is_dtensor(wi)
+              else experts_per_chunk(E, D, z, Fd, G * cap))
+        if ec >= E:
+            eout = _expert_ffn(xe, wi, p["wo"], z, act, x.dtype)
         else:
-            h = act(h[:, :, 0])
-        eout = einsum("ecf,efd->ecd", h.to(x.dtype), p["wo"],
-                      F32).to(x.dtype)
+            eout = torch.cat([_expert_ffn(a, b, c, z, act, x.dtype)
+                              for a, b, c in zip(xe.split(ec), wi.split(ec),
+                                                 p["wo"].split(ec))])
         eout = eout.reshape(E, G, cap, D).transpose(0, 1)      # (G,E,c,D)
     with record_function("moe.combine"):
         yf = einsum("gsec,gecd->gsd", comb, eout, F32).to(x.dtype)

@@ -468,12 +468,31 @@ def _encode_sharded(cfg: ArchConfig, params: dict,
     return L.as_batch(L.embedding_sharded(tokens, embed).to(_adtype(cfg)))
 
 
+def vocab_per_chunk(d_model: int, vocab_size: int) -> int:
+    """Vocabulary columns a slice of :func:`_unembed`'s product holds:
+    as many as keep the slice's widened table within
+    ``layers.F32_CHUNK_BYTES`` (the logits are the output, whole)."""
+    return L.per_chunk(vocab_size, 4 * d_model)
+
+
 def _unembed(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Final norm and the f32 logits (B, T, V), a slice of the
+    vocabulary at a time (:func:`vocab_per_chunk`; DTensors whole): the
+    same f32 products of the same operands as one product."""
     x = L.rms_norm(L.as_batch(x), L.gather_param(params["final_norm"]),
                    cfg.rms_eps)
     unembed = (L.gather_param(params["embed"]).T if cfg.tie_embeddings
                else L.gather_param(params["unembed"]))
-    return L.einsum("btd,dv->btv", x, unembed, F32)
+    D, V = unembed.shape
+    step = vocab_per_chunk(D, V)
+    if step >= V or L.is_dtensor(x) or L.is_dtensor(unembed):
+        return L.einsum("btd,dv->btv", x, unembed, F32)
+    x = x.to(F32)
+    logits = torch.empty(x.shape[:-1] + (V,), dtype=F32, device=x.device)
+    for v0 in range(0, V, step):
+        logits[..., v0:v0 + step] = L.einsum(
+            "btd,dv->btv", x, unembed[:, v0:v0 + step], F32)
+    return logits
 
 
 def forward(cfg: ArchConfig, params: dict, batch: dict,

@@ -1129,6 +1129,67 @@ def test_flash_attention_sm90_grid_past_65535_blocks(dev):
                                rtol=2 ** -8, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("H,KV", [(48, 1), (40, 8)],
+                         ids=["granite-48-on-1", "llama4-40-on-8"])
+def test_flash_attention_at_wide_groupings(dev, H, KV, dtype):
+    """granite-34b's 48 query heads on one KV head and llama4-maverick's
+    groups of 5, at hd 128 and T = S = 1024, causal: each route against
+    the plain version (one bf16 rounding; 2e-5 in f32)."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    q, k, v = _qkv(dev, 1, H, KV, 1024, 1024, 128, seed=H + KV, dtype=dtype)
+    route = "sm90" if dtype == torch.bfloat16 else "sm90_f32"
+    before = dict(flash_mod.launches_by_route)
+    got = flash_mod.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_mod.launches_by_route == {
+        r: n + (r == route) for r, n in before.items()}
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    tol = (2 ** -8, 1e-5) if dtype == torch.bfloat16 else (2e-5, 2e-5)
+    torch.testing.assert_close(got.float(), want, rtol=tol[0], atol=tol[1])
+
+
+@pytest.mark.parametrize("E,D,Fd,K,chunk", [
+    (128, 2048, 768, 8, None),     # qwen3-moe-30b-a3b: the rule's 2 chunks
+    (16, 5120, 8192, 1, 3),        # 16 of llama4-maverick's experts
+])
+def test_chunked_moe_on_card_matches_whole(dev, monkeypatch, E, D, Fd, K,
+                                           chunk):
+    """``layers.moe``'s expert products a chunk of experts at a time
+    (``F32_CHUNK_BYTES`` left as it is, or set for ``chunk`` experts)
+    against one product over all experts, at full expert widths where
+    both fit: bf16 weights, f32 activations (the f32 twin, whose
+    products widen the weights), within 1e-5 of max|whole| (the same f32
+    products, cuBLAS free to order each sum its own way); and bf16
+    activations within one bf16 ulp (2^-7) of max|whole|, where an f32
+    sum summed in another order may round to the next bf16 value."""
+    from repro_torch.models import layers as L
+    g = torch.Generator(device=dev).manual_seed(E + K)
+    p = {"router": torch.randn(D, E, generator=g, device=dev) * D ** -0.5,
+         "wi": (torch.randn(E, D, 2, Fd, generator=g, device=dev)
+                * D ** -0.5).to(torch.bfloat16),
+         "wo": (torch.randn(E, Fd, D, generator=g, device=dev)
+                * Fd ** -0.5).to(torch.bfloat16)}
+    x = torch.randn(1, 2048, D, generator=g, device=dev)
+    kw = dict(n_experts=E, top_k=K, activation="silu", capacity_factor=1.25)
+    per_expert = L.expert_bytes(D, 2, Fd, int(1.25 * K * 2048 / E))
+    if chunk is None:
+        assert L.F32_CHUNK_BYTES < E * per_expert
+    budget = L.F32_CHUNK_BYTES if chunk is None else chunk * per_expert
+
+    def run(xin, nbytes):
+        monkeypatch.setattr(L, "F32_CHUNK_BYTES", nbytes)
+        return L.moe(xin, p, **kw).float()
+
+    for xin in (x, x.to(torch.bfloat16)):
+        whole = run(xin, E * per_expert)
+        got = run(xin, budget)
+        err = (got - whole).abs().max() / whole.abs().max()
+        assert err.item() <= (1e-5 if xin.dtype == torch.float32
+                              else 2 ** -7)
+
+
 def _reduced_lm(name, **kw):
     import dataclasses
     from repro_torch.configs import get_arch
