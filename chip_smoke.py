@@ -261,6 +261,54 @@ Phases, each printed as it runs:
              same weights (losses and ||dparams|| / ||params|| within
              1e-4); and a bf16 run checkpointed at step 2 and resumed by
              a fresh Trainer against the uninterrupted run (1e-3).
+10b. train-arms — the LM's other arms trained at full width (TRAIN_ARMS),
+             one model at a time, each drawn from a seed by its Trainer
+             (phase 7b's weights are not kept: a draw takes under a
+             second): (a) rwkv6-3b (32 layers, Zipf tokens),
+             musicgen-medium (48 layers, seeded embeds looked up in its
+             embedding table and codebook labels, as launch/train.py
+             makes them) whole and qwen3-moe-30b-a3b at 8 of its 48
+             layers (the whole model's 12 bytes a parameter are 366.4
+             GB; 8 layers take 67.3 GB with their gradients), at the
+             reference's capacity factor: 4 AdamW steps through Trainer
+             in bf16 with f32 moments, remat "nothing", the xla
+             attention and phase 10's peak lr on 2 x 1024 tokens from a
+             SelfScheduledLoader, the first untimed and the last
+             profiled, every kernel counter zeroed just before and read
+             as 0 just after; gates as phase 10's: finite losses and
+             grad norms, the last loss below the first, allocated memory
+             equal after every step.  Printed: parameters, state GB,
+             step ms, tokens/s, peak GB, device ms by kind of kernel (by
+             MoE stage for qwen3-moe), then the largest batch: forward +
+             backward peaks at 2 and 8 rows (fewer where 8 run out of
+             memory) give a line whose largest B keeping 4 GB of the
+             card free is printed as an estimate, and one step runs at
+             that B or at fewer rows where that step would take over
+             TRAIN_ARMS_LARGEST_S (both printed; on running out of
+             memory, an eighth fewer rows, the probe's, then 2).
+             (b) jamba-v0.1-52b's period (8 of 32 layers: Mamba,
+             attention, MoE), one
+             launch.steps.value_and_grad at 1 x 1024 under
+             torch.profiler (AdamW's moments would make the period
+             159.5 GB): finite loss and gradients, no kernel launched,
+             peak and device ms by kind.  (c) each kind
+             of sublayer at its model's last layer of that kind, on the
+             step-0 weights and the bf16 forward's input to it
+             (sublayer_witness): RWKV-6 time and channel mix, musicgen's
+             attention, qwen3-moe's and jamba's MoE, jamba's Mamba mixer;
+             the f32 twin's gradient (input and every weight) against
+             central differences along itself (phase 10's e, then the
+             steps of FD_LADDER: a leaf holds where two adjacent steps
+             both read within 2e-2; an MoE's tokens routed apart by a
+             perturbed pass left out of the difference and printed),
+             the bf16 gradient against the f32 twin's within 0.05 a
+             leaf (RWKV-6's time mix 0.1); and rwkv6-3b's whole-model
+             f32 twin (whole_witness) on 2 of its layers with every
+             bonus u drawn (from 4 layers on, the loss along the
+             gradient bends within any step that f32 resolves, and at
+             u = 0 the group norm bends too; the port's gradient at 32
+             layers is held against jax.grad on the CPU instead), its
+             bf16 gradient printed beside it.
 11. mesh   — the mesh tools, with every kernel counter zeroed just
              before and read just after (all read 0).  (a) The dry run
              (``python -m repro_torch.launch.dryrun --all --multi-pod
@@ -568,6 +616,117 @@ TRAIN_RESUME_STEPS = 6
 # reordered sum moves a bf16 loss by far less than one bf16 rounding
 # (2^-8); 1e-3 relative sits under it.
 TRAIN_RESUME_RTOL = 1e-3
+# Phase 10b: the LM's arms trained at full width, one model at a time,
+# each in its own bf16 dtypes with phase 10's optimizer, remat and lr.
+# (a) AdamW steps through Trainer at B x TRAIN_T tokens, the first step
+# untimed and the last profiled; then the largest batch
+# (``largest_batch``).  ``cut`` is a depth cut: qwen3-moe's 48 layers
+# take 12 bytes a parameter (bf16 weights and gradients, f32 moments) =
+# 366 GB; 8 layers take 67.3 GB.  (b) jamba takes one ``value_and_grad``
+# at its period (8 of 32 layers): AdamW's moments would make one period
+# 159.5 GB, weights and bf16 gradients are 52.2 GB.  (c) ``witness``:
+# each kind of sublayer of the model, the last layer of its kind, on the
+# step-0 weights and the bf16 forward's input to it
+# (``sublayer_witness``), and for rwkv6 the f32 twin of the model cut to
+# its first ``whole`` layers on one row, every bonus u drawn U(0, 1)
+# (``whole_witness``).  Readings on FD_LADDER, the larger of the best
+# two adjacent steps (H100 80GB HBM3, 700 W): at the step-0 u = 0, 2
+# layers read u 0.0204 (1.4e-3 at e / 300 beside 2.04e-2 at e / 100:
+# the group norm's bend at u = 0, as in the time-mix witness) and 4
+# layers u 0.046; with u drawn, 2 layers hold, while 4 and 8 miss on
+# the channel mix's wk (0.28, 0.14) and 32 on the time mix's wg (0.92):
+# deeper, the loss bends along the gradient within any step that f32
+# resolves.  Depth is held on the CPU instead: the port's whole-model
+# gradient at 32 layers of the reduced config against jax.grad
+# (tests/test_torch_train_arms_depth.py).  The arms are drawn again
+# here: phase 7b draws each in 0.03-0.35 s, so reusing its weights
+# saves nothing.
+# The whole-model witness prints its bf16 gradient beside the f32
+# twin's, not gated (the loss is): rwkv6-3b's read 0.02-0.64 a leaf at 2
+# layers and 0.06-0.34 at 4 with u = 0 (u 1.19 and 1.32; H100 80GB HBM3,
+# 700 W).
+# RWKV-6's layers compound bf16 rounding, as phase 7b prints of its
+# forward, and the reference run op by op sits as far from its f32
+# twin, leaf by leaf within 0.15 of the port's distance (0.07-0.21 at
+# the reduced config; tests/test_torch_train_arms_bf16.py::
+# test_bf16_rwkv6_gradient_rounds_as_reference).
+TRAIN_ARMS = (
+    dict(arch="rwkv6-3b", cut={}, B=2,
+         witness=("rwkv6 time mix", "rwkv6 channel mix"), whole=2),
+    dict(arch="musicgen-medium", cut={}, B=2, witness=("attention",),
+         whole=0),
+    dict(arch="qwen3-moe-30b-a3b", cut={"n_layers": 8}, B=2,
+         witness=("moe",), whole=0),
+)
+TRAIN_ARMS_GRAD = dict(arch="jamba-v0.1-52b", cut={"n_layers": 8}, B=1,
+                       witness=("mamba", "moe"))
+TRAIN_ARMS_STEPS = 4
+TRAIN_ARMS_HEADROOM = 4e9        # bytes the largest-B step leaves free
+# The largest-B step is held to about this many seconds (rows in
+# proportion to the median step's): where the line puts more rows, the
+# step runs at fewer and both are printed.  musicgen-medium's line put
+# 153 rows, about 51 s a step, and rwkv6-3b's 53, about 50 s (estimates
+# from the line, never run; H100 80GB HBM3, 700 W), where the script
+# has 900 s in all.
+TRAIN_ARMS_LARGEST_S = 4.0
+# A row of TRAIN_T tokens adds at least this much to a forward +
+# backward peak (the smallest arm, musicgen-medium, adds 0.42 GB).
+# qwen3-moe's peaks at 2 and 5 rows read 73.19 and 73.21 GB, both set
+# by its weights, gradients and moments, where 8 rows peaked at 81.48
+# (H100 80GB HBM3, 700 W): a line through the first two put 1859 rows.
+TRAIN_ARMS_ROW_MIN = 5e7
+# Phase 10b on the CPU (``reduced``): the reduced configs, not cut, at
+# TRAIN_ARMS_REDUCED_T tokens (two of RWKV-6's 32-token chunks) and
+# phase 10 (d)'s peak lr: at 3e-5, 2 x 64 tokens a batch, a reduced
+# model's loss moves less than from batch to batch (qwen3-moe-reduced:
+# 6.649, 6.589, 6.935, 6.683).
+TRAIN_ARMS_REDUCED_T = 64
+TRAIN_ARMS_REDUCED_LR = 1e-2
+# The sublayer witness's loss: <out, c> / (tokens rms(out)) for a seeded
+# N(0, 1) cotangent c, summed in f64, rms(out) the f32 twin's output's at
+# the unperturbed point, so that TRAIN_FD_DL means one thing whatever
+# the output's scale: divided by tokens alone, jamba-v0.1-52b-reduced's
+# MoE put its wi's differences 0.29 off ||g||^2 at e and 0.82 at e / 10
+# (CPU).
+# The sublayer witnesses and the whole-model twin take their central
+# differences on a ladder of steps, multiples of the e that phase 10's
+# rule gives (e ||g||^2 = TRAIN_FD_DL), evaluated outward from e (e,
+# 3 e, e / 3, 10 e, ...) until two steps adjacent on the ladder both
+# meet TRAIN_FD_RTOL (``_fd_leaf``); every step taken is printed.  A
+# right gradient meets the gate over a range of steps, where the
+# difference's rounding and truncation both sit below it; a biased one
+# nowhere, and two neighbouring steps a factor of 3 apart do not both
+# land where truncation and rounding happen to cancel a bias.  Phase
+# 10's witness keeps its single e.  Measured reasons (H100 80GB HBM3,
+# 700 W).  Rounding: at full width a sublayer's f32 output resolves
+# the change at e too coarsely for some leaves: qwen3-moe's MoE wi read
+# 0.32 at e and 6.7e-3 at 10 e, jamba's MoE wi 0.47, 0.20 and 1.3e-3 at
+# e, 10 e and 100 e, its Mamba in_proj 0.36 and 9.1e-3 at e and 10 e,
+# rwkv6-3b's channel-mix wk 0.024 and 4.2e-5.  Truncation: at the
+# step-0 weights RWKV-6's bonus u is 0, so every head's output at
+# position 0 is 0 and its group norm sits where it bends most (variance
+# 0 under eps 64e-5): rwkv6-3b's time-mix u read 0.095, 0.38, 0.70 and
+# 1.1e-3 at e, 10 e, 100 e and e / 10.  A half-decade ladder took
+# jamba's MoE wi no further than 100 e: it read 0.032 at 30 e and 1.3e-3
+# at 100 e, and 1.0-2.2 from e / 300 to e / 10, where the perturbation
+# sits under half an f32 ulp of most of its weights; 300 e and 1000 e
+# follow.
+FD_LADDER = (0.001, 0.003, 0.01, 0.03, 0.1, 0.3, 1.0, 3.0, 10.0, 30.0,
+             100.0, 300.0, 1000.0)
+# ||g_bf16 - g_f32|| / ||g_f32|| a leaf, by kind of sublayer: phase
+# 10's 0.05 but for RWKV-6's time mix, whose bf16 gradient at rwkv6-3b's
+# last layer reads up to 0.0695 (u; mu_k 0.0599) off its f32 twin on an
+# H100 80GB HBM3 at 700 W.  As in its forward (SUBLAYER_BF16_GATE), the
+# decay and the group norm amplify bf16 rounding in the reference too:
+# at the reduced config the reference's time mix run op by op sits at
+# least as far from its f32 twin, leaf by leaf, and reaches 0.0704
+# (tests/test_torch_train_arms_bf16.py::
+# test_bf16_rwkv6_time_mix_gradient_rounds_as_reference).
+SUBLAYER_GRAD_GATE = {"moe": TRAIN_BF16_GRAD_TOL,
+                      "mamba": TRAIN_BF16_GRAD_TOL,
+                      "attention": TRAIN_BF16_GRAD_TOL,
+                      "rwkv6 time mix": 0.1,
+                      "rwkv6 channel mix": TRAIN_BF16_GRAD_TOL}
 # Screen tasks timed one after another, profiled, after the workflow.
 SCREEN_PROFILE_TASKS = 200
 # Card against CPU on the GLOBE batch: both run the same f32 operations
@@ -3244,10 +3403,11 @@ def lm_profiled_forward(tag: str, cfg, params, batch: dict,
         M.forward(cfg_flash, params, batch)
         torch.cuda.synchronize()
         prof_s = time.perf_counter() - t0
-    busy = _device_busy(prof)
+    averages = prof.key_averages()
+    busy = _device_busy(prof, averages)
     busy_ms = sum(busy.values())
     split = _kernel_split(busy)
-    stages = _stage_device_ms(prof) if n_moe else {}
+    stages = _stage_device_ms(prof, averages) if n_moe else {}
     top = sorted(busy.items(), key=lambda kv: -kv[1])[:8]
     del prof
     idle = 1 - busy_ms / (prof_s * 1e3)
@@ -3686,9 +3846,6 @@ def phase_train(device: str = "cuda") -> dict:
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import SelfScheduledLoader
-    from repro_torch.kernels import (agl_lookup, dynamic_rates,
-                                     encounter_screen, track_interp)
-    from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.launch import steps as ST
     from repro_torch.models import model as M
     from repro_torch.train import optimizer as O
@@ -3700,9 +3857,7 @@ def phase_train(device: str = "cuda") -> dict:
     shutil.rmtree(root, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
-    mods = {"track_interp": track_interp, "agl_lookup": agl_lookup,
-            "dynamic_rates": dynamic_rates,
-            "encounter_screen": encounter_screen}
+    mods = _all_kernel_modules()
     out: dict = {}
 
     # (a) full width
@@ -3722,8 +3877,7 @@ def phase_train(device: str = "cuda") -> dict:
                  f"{time.perf_counter() - t0:.3f}s, "
                  f"{loader.job_result.messages_sent} messages, "
                  f"{len(batches)} batches of {TRAIN_B} x {TRAIN_T}")
-    zero_counters(mods)
-    flash_mod.launches = 0
+    _zero_all_counters(mods)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     tr = Trainer(cfg, O.OptimizerConfig(),
@@ -3759,7 +3913,6 @@ def phase_train(device: str = "cuda") -> dict:
     wall = time.perf_counter() - t0
     log = tr.metrics_log
     launches = {name: mod.launches for name, mod in mods.items()}
-    launches["flash_attention"] = flash_mod.launches
     say("train", f"kernel launches in the {TRAIN_STEPS} steps (counters "
                  f"zeroed just before): {launches}")
     if any(launches.values()):
@@ -3929,6 +4082,820 @@ def phase_train(device: str = "cuda") -> dict:
     say("train", "summary " + json.dumps(out))
     # phase 11 trains on the same batches
     out["batches"], out["resume_batches"] = batches, rb
+    return out
+
+
+def _card_sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _card_reset_peak(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _card_bytes(dev, peak: bool = False) -> int:
+    """Allocated (or peak allocated) bytes on the card; 0 on the CPU."""
+    import torch
+    if dev.type != "cuda":
+        return 0
+    return (torch.cuda.max_memory_allocated() if peak
+            else torch.cuda.memory_allocated())
+
+
+def _card_free(dev) -> None:
+    import gc
+    import torch
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _all_kernel_modules() -> dict:
+    from repro_torch.kernels import (agl_lookup, dynamic_rates,
+                                     encounter_screen, flash_attention,
+                                     track_interp)
+    return {"track_interp": track_interp, "agl_lookup": agl_lookup,
+            "dynamic_rates": dynamic_rates,
+            "encounter_screen": encounter_screen,
+            "flash_attention": flash_attention}
+
+
+def _zero_all_counters(mods: dict) -> None:
+    zero_counters({k: m for k, m in mods.items() if k != "flash_attention"})
+    flash = mods["flash_attention"]
+    flash.launches = 0
+    for r in flash.launches_by_route:
+        flash.launches_by_route[r] = 0
+
+
+def _arm_config(arm: dict, reduced: bool):
+    """An arm's config: full width with its depth cut, or its reduced
+    variant, not cut."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    if reduced:
+        return get_arch(arm["arch"], reduced=True)
+    return dataclasses.replace(get_arch(arm["arch"]), **arm["cut"])
+
+
+def arm_batches(cfg, B: int, T: int, n: int, root: str, embed=None) -> list:
+    """``n`` batches of B x T: Zipf tokens from a SelfScheduledLoader
+    over a Zipf store of the config's vocabulary (phase 10's), and for a
+    stubbed frontend the rows of ``embed`` those tokens look up (with
+    the next tokens as codebook labels), as ``launch/train.py`` feeds
+    it.  Token batches stay numpy; embeds lie on ``embed``'s device."""
+    import torch
+    from repro_torch.data.pipeline import SelfScheduledLoader
+    shards = zipf_store(root, cfg.vocab_size, n_shards=8,
+                        tokens_per_shard_mean=n * B * (T + 1) // 4)
+    loader = SelfScheduledLoader(shards, batch_size=B, seq_len=T,
+                                 n_ingest_workers=4)
+    batches = list(loader.batches(n))
+    if cfg.frontend is None:
+        return batches
+    return [{"embeds": embed[torch.from_numpy(b["tokens"]).to(
+        embed.device).long()], "labels": b["labels"]} for b in batches]
+
+
+def _rows(batches: list, b: int) -> dict:
+    """A batch of ``b`` rows taken in turn from ``batches``' rows."""
+    import numpy as np
+    import torch
+    out = {}
+    for k in batches[0]:
+        whole = (torch.cat([x[k] for x in batches])
+                 if isinstance(batches[0][k], torch.Tensor)
+                 else np.concatenate([x[k] for x in batches]))
+        idx = np.arange(b) % whole.shape[0]
+        out[k] = whole[torch.from_numpy(idx).to(whole.device)
+                       if isinstance(whole, torch.Tensor) else idx]
+    return out
+
+
+def _profiled(dev, moe: bool):
+    """torch.profiler on the card's kernels, with the CPU side where the
+    MoE stages' ranges are wanted (or there is no card)."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA] if dev.type == "cuda" else []
+    if moe or not acts:
+        acts.append(ProfilerActivity.CPU)
+    return profile(activities=acts)
+
+
+def _say_profile(name: str, what: str, prof, n_moe: int,
+                 suffix: str) -> dict:
+    """Device ms by kind of kernel (and by MoE stage, where ``n_moe``) of
+    a profile."""
+    averages = prof.key_averages()
+    busy = _device_busy(prof, averages)
+    split = _kernel_split(busy)
+    total = sum(busy.values())
+    stages = _stage_device_ms(prof, averages) if n_moe else {}
+    say("train-arms", f"{name} {what}: device busy {total:.1f} ms; by kind: "
+        + ", ".join(f"{k} {v:.1f} ms ({v / total if total else 0:.4f})"
+                    for k, v in split.items()) + suffix)
+    if stages:
+        say("train-arms", f"{name} {what}, MoE stages ({n_moe} layers; the "
+            f"forward and its recompute, not the backward's kernels), "
+            f"device ms: " + ", ".join(f"{k} {v:.1f}"
+                                       for k, v in stages.items()) + suffix)
+    return {"busy_ms": total, "split_ms": split, "moe_stages_ms": stages}
+
+
+def largest_batch(tr, batches: list, B0: int, step_s: float, dev,
+                  suffix: str) -> dict:
+    """The largest batch a Trainer step takes.  Forward + backward
+    (``value_and_grad``) at ``B0`` rows and at 4x as many (halved toward
+    ``B0`` where that runs out of memory) give the line of peak memory
+    over rows (at 1 and 2 rows musicgen-medium's peaked alike, 17.38 GB:
+    its gradients and one superblock's recompute set both);
+    the optimizer update's own peak does not grow with rows.  The
+    largest B that the line keeps TRAIN_ARMS_HEADROOM under the card's
+    memory is an estimate (none where the two peaks differ by less than
+    TRAIN_ARMS_ROW_MIN a row: both are then set by what does not grow
+    with rows).  One Trainer step then runs at that B (at the larger
+    probe's rows without an estimate) or, where a step there would take
+    over TRAIN_ARMS_LARGEST_S at ``step_s`` a step of ``B0``, at fewer
+    rows; on running out of memory at an eighth fewer rows, at the
+    larger probe's rows, then at ``B0``.  Only that step is measured.  Returns the line, the
+    estimate, the rows run and the step's peak and seconds."""
+    import torch
+    from repro_torch.launch import steps as ST
+    name, T = tr.cfg.name, TRAIN_T
+    total = torch.cuda.mem_get_info()[1]
+
+    def peak_of(fn) -> int:
+        _card_free(dev)
+        _card_reset_peak(dev)
+        fn()
+        _card_sync(dev)
+        return _card_bytes(dev, peak=True)
+
+    def fwd_bwd(b: int) -> None:
+        batch = {k: torch.as_tensor(v).to(dev)
+                 for k, v in _rows(batches, b).items()}
+        ST.value_and_grad(tr.cfg, tr.params, batch, remat_policy="nothing")
+
+    peaks = {B0: peak_of(lambda: fwd_bwd(B0))}
+    b = 4 * B0
+    while b > B0:
+        try:
+            peaks[b] = peak_of(lambda: fwd_bwd(b))
+            break
+        except torch.cuda.OutOfMemoryError:
+            b = (B0 + b) // 2
+    hi = max(peaks)
+    res = {"probe_peaks_gb": {k: v / 1e9 for k, v in peaks.items()},
+           "card_gb": total / 1e9}
+    shown = ", ".join(f"{v / 1e9:.2f} GB at {k} x {T}"
+                      for k, v in sorted(peaks.items()))
+    per_row = (peaks[hi] - peaks[B0]) / max(hi - B0, 1)
+    fit = None
+    if hi == B0:
+        say("train-arms", f"{name} largest batch: {B0 + 1} x {T} rows ran "
+            f"out of memory in forward + backward" + suffix)
+    elif per_row < TRAIN_ARMS_ROW_MIN:
+        say("train-arms", f"{name} largest batch: forward + backward peak "
+            f"{shown}"
+            + (f" ({4 * B0} rows ran out of memory)" if hi < 4 * B0 else "")
+            + ": both set by what does not grow with rows, so no line and "
+            "no estimate" + suffix)
+    else:
+        fit = B0 + int((total - TRAIN_ARMS_HEADROOM - peaks[B0])
+                       // per_row)
+        res["per_row_gb"] = per_row / 1e9
+        say("train-arms", f"{name} largest batch: forward + backward peak "
+            f"{shown}: {per_row / 1e9:.3f} GB a row; of the card's "
+            f"{total / 1e9:.2f} GB less {TRAIN_ARMS_HEADROOM / 1e9:.0f} GB "
+            f"the line puts {fit} rows (an estimate from two points, not "
+            f"run at {fit} unless printed below)" + suffix)
+    res["fit_B_estimate"] = fit
+    b = min(fit or hi, max(B0, int(B0 * TRAIN_ARMS_LARGEST_S / step_s)))
+    if b < (fit or hi):
+        say("train-arms", f"{name}: a step at {fit or hi} rows would take "
+            f"about {(fit or hi) / B0 * step_s:.0f}s; run at {b} instead "
+            f"(TRAIN_ARMS_LARGEST_S {TRAIN_ARMS_LARGEST_S:.0f}s); "
+            f"{fit or hi} rows not measured" + suffix)
+    # on running out of memory: an eighth fewer rows, the larger probe's
+    # rows, then B0 (the steps of (a))
+    for b in sorted({x for x in (b, b - max(1, b // 8), hi, B0) if x <= b},
+                    reverse=True):
+        try:
+            peak = peak_of(lambda: tr.run(iter([_rows(batches, b)]), 1))
+            break
+        except torch.cuda.OutOfMemoryError:
+            if b == B0:
+                raise
+            say("train-arms", f"{name}: a step at {b} x {T} ran out of "
+                              f"memory" + suffix)
+    sec = tr.metrics_log[-1]["sec"]
+    res.update(B=b, peak_gb=peak / 1e9, step_s=sec)
+    say("train-arms", f"{name} step at {b} x {T}: peak {peak / 1e9:.2f} GB, "
+        f"{sec * 1e3:.1f} ms ({b * T / sec:.1f} tokens/s), loss "
+        f"{tr.metrics_log[-1]['loss']:.4f}" + suffix)
+    return res
+
+
+def sublayer_inputs(cfg, params: dict, batch: dict, labels) -> dict:
+    """The bf16 forward's input to the last sublayer of each kind in
+    ``labels`` ('attention', 'mamba', 'rwkv6 time mix' are mixers;
+    'moe', 'rwkv6 channel mix' feed-forwards), normalised as the layer
+    normalises it, with that sublayer's weights: {label: (h, p,
+    layer)}."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    mixer = {"attention": "attn", "mamba": "mamba",
+             "rwkv6 time mix": "rwkv6"}
+    ffn = {"moe": None, "rwkv6 channel mix": "rwkv6"}
+    want = {}
+    for label in labels:
+        if label in mixer:
+            want[label] = max(i for i in range(cfg.n_layers)
+                              if cfg.layer_kind(i) == mixer[label])
+        elif label == "moe":
+            want[label] = max(i for i in range(cfg.n_layers)
+                              if cfg.is_moe_layer(i)
+                              and cfg.layer_kind(i) != "rwkv6")
+        else:
+            want[label] = max(i for i in range(cfg.n_layers)
+                              if cfg.layer_kind(i) == ffn[label])
+    out = {}
+    with torch.no_grad():
+        x = M.encode_inputs(cfg, params, batch)
+        for layer in range(max(want.values()) + 1):
+            sb, i = divmod(layer, cfg.pattern_period)
+            kind = cfg.block_pattern[i]
+            p = M._index(params["blocks"], sb)[f"s{i}"]
+            is_moe = cfg.is_moe_layer(layer)
+            for label, at in want.items():
+                if at != layer:
+                    continue
+                if label in mixer:
+                    out[label] = (L.rms_norm(x, p["norm1"], cfg.rms_eps),
+                                  p["mixer"], layer)
+                else:
+                    h = L.rms_norm(x, p["norm1"], cfg.rms_eps)
+                    mix = _sublayer_fn(cfg, {"attn": "attention",
+                                             "mamba": "mamba",
+                                             "rwkv6": "rwkv6 time mix"}[
+                                                 kind])(h, p["mixer"])
+                    out[label] = (L.rms_norm(x + mix, p["norm2"],
+                                             cfg.rms_eps), p["ffn"], layer)
+            x = M._apply_sublayer(cfg, kind, is_moe, p, x)
+    return out
+
+
+def _sublayer_fn(cfg, label: str):
+    """(h, p) -> the sublayer's output, in the dtype of ``h``."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm as S
+    if label == "attention":
+        return lambda h, p: L.attention_train(
+            h, p, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+            head_dim=cfg.head_dim_, theta=cfg.rope_theta,
+            window=cfg.sliding_window, impl="xla")
+    if label == "mamba":
+        return lambda h, p: S.mamba_train(h, p, d_state=cfg.d_state)
+    if label == "rwkv6 time mix":
+        return lambda h, p: S.rwkv6_time_mix(h, p,
+                                             head_dim=cfg.rwkv_head_dim)
+    if label == "rwkv6 channel mix":
+        return S.rwkv6_channel_mix
+    if label == "moe":
+        return lambda h, p: M._moe(cfg, p, h)
+    raise KeyError(label)
+
+
+class _RouteLog:
+    """``layers._route`` wrapped: each call's expert choices and keep
+    mask (G, Sg, K) recorded in ``picks``."""
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+        self.route, self.picks = L._route, []
+
+        def recording(xg, router, top_k, cap):
+            got = self.route(xg, router, top_k, cap)
+            self.picks.append((got[1], got[3]))
+            return got
+        L._route = recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers as L
+        L._route = self.route
+
+
+def _moved_tokens(picks: list, base: list, shape, dev) -> "torch.Tensor":
+    """(B, T) mask of the tokens whose expert choices or drops, in any
+    MoE call, differ from ``base``'s (all False without an MoE)."""
+    import torch
+    out = torch.zeros(tuple(shape), dtype=torch.bool, device=dev)
+    for (i, k), (i0, k0) in zip(picks, base):
+        out |= ((i != i0) | (k != k0)).any(-1).reshape(tuple(shape))
+    return out
+
+
+def sublayer_witness(cfg, label: str, h16, p16: dict, seed: int = 0,
+                     suffix: str = "") -> dict:
+    """Phase 10 (e)'s witness on one sublayer (``_sublayer_fn``) at its
+    bf16 input ``h16`` and weights ``p16``, for the loss <out, c> /
+    (tokens rms(out)) of a seeded N(0, 1) cotangent c, summed in f64,
+    rms(out) the f32 twin's at the unperturbed point: the f32
+    twin's gradient (input and every weight, all widened) against
+    central differences along itself, leaf by leaf, e ||g||^2 =
+    TRAIN_FD_DL within TRAIN_FD_RTOL; the bf16 gradient against the f32
+    twin's, leaf by leaf, within SUBLAYER_GRAD_GATE[label].  The
+    differences take the steps of FD_LADDER (``_fd_leaf``).  An MoE's expert
+    choices and drops are recorded on every pass: the tokens that either
+    perturbed pass routes apart from the unperturbed one are printed and
+    left out of the difference, which is then held against the slope of
+    the loss over the tokens routed alike.  Raises if a check fails;
+    ``h16`` and ``p16`` are left as they were."""
+    import torch
+    from repro_torch.train import optimizer as O
+    fn = _sublayer_fn(cfg, label)
+    moe = label == "moe"
+    dev = h16.device
+    tokens = h16.shape[0] * h16.shape[1]
+    c = torch.randn(tuple(h16.shape), dtype=torch.float64, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(seed))
+    names = ["input"] + _leaf_paths(p16)
+    src = [h16] + O.tree_leaves(p16)
+    w32 = [t.to(torch.float32, copy=True) for t in src]
+    h32, p32 = w32[0], O.tree_unflatten(p16, w32[1:])
+    with torch.no_grad():
+        scale = tokens * float(fn(h32, p32).double().square().mean()) ** 0.5
+
+    def per_token(h, p) -> torch.Tensor:
+        return (fn(h, p).double() * c).sum(-1) / scale      # (B, T)
+
+    def grad(h, p) -> tuple:
+        leaves = [h.detach().requires_grad_(True)] + [
+            w.detach().requires_grad_(True) for w in O.tree_leaves(p)]
+        with torch.enable_grad():
+            value = per_token(leaves[0], O.tree_unflatten(p, leaves[1:]))
+            value = value.sum()
+            g = torch.autograd.grad(value, leaves, allow_unused=True,
+                                    materialize_grads=True)
+        return value.item(), list(g)
+
+    def masked_slope(i: int, alike, g) -> float:
+        """<d(loss over the tokens ``alike``)/d leaf i, g> at w32."""
+        leaves = [t.detach() for t in w32]
+        leaves[i].requires_grad_(True)
+        with torch.enable_grad():
+            value = (per_token(leaves[0], O.tree_unflatten(
+                p16, leaves[1:])) * alike).sum()
+            gi, = torch.autograd.grad(value, [leaves[i]])
+        return float((gi.double() * g.double()).sum())
+
+    t0 = time.perf_counter()
+    l16, g16 = grad(h16, p16)
+    with _RouteLog() as base:
+        l32, g32 = grad(h32, p32)
+    res = {"layer": None, "loss_bf16": l16, "loss_f32": l32,
+           "grad_bf16_vs_f32": {}, "fd": {}}
+    for n, a, b in zip(names, g16, g32):
+        res["grad_bf16_vs_f32"][n] = _rel_err(a, b)
+    del g16
+    for i, (n, w, s, g) in enumerate(zip(names, w32, src, g32)):
+        g2 = float(g.double().norm()) ** 2
+
+        def diff(e: float) -> dict:
+            side, moved = [], []
+            for sign in (1.0, -1.0):
+                w.copy_(s).add_(g, alpha=sign * e)
+                with torch.no_grad(), _RouteLog() as log:
+                    side.append(per_token(h32, p32))
+                moved.append(_moved_tokens(log.picks, base.picks,
+                                           h16.shape[:2], dev))
+            w.copy_(s)
+            alike = ~(moved[0] | moved[1])
+            # tokens routed apart leave the loss; the slope is then that
+            # of the loss over the tokens routed alike
+            slope = g2 if bool(alike.all()) else masked_slope(i, alike, g)
+            fd = float(((side[0] - side[1]) * alike).sum()) / (2 * e)
+            return {"rel": abs(fd - slope) / abs(slope),
+                    "apart": [int(m.sum()) for m in moved]}
+        res["fd"][n] = _fd_leaf(diff, g2, FD_LADDER)
+    del w32, g32, p32, h32
+    res["s"] = time.perf_counter() - t0
+    gate = SUBLAYER_GRAD_GATE[label]
+    say("train-arms", f"{cfg.name} {label} witness ({tuple(h16.shape)} "
+        f"input): loss bf16 {l16:.6g}, f32 twin {l32:.6g}; "
+        + _fd_text(res["fd"])
+        + f"; ||g_bf16 - g_f32|| / ||g_f32|| by leaf (gate {gate}): "
+        + ", ".join(f"{n} {v:.4f}" for n, v in
+                    res["grad_bf16_vs_f32"].items())
+        + f"; {res['s']:.1f}s" + suffix)
+    _witness_gates(f"{cfg.name} {label}", res, gate)
+    return res
+
+
+def _rel_err(a, b) -> float:
+    """||a - b|| / ||b|| (||a|| where b is 0), a in f32."""
+    den = float(b.norm())
+    return (float((a.float() - b).norm()) / den if den
+            else float(a.float().norm()))
+
+
+def _fd_leaf(diff, g2: float, ladder: tuple = (1.0,)) -> dict:
+    """Central differences of one leaf along its gradient g (||g||^2 =
+    ``g2``) at the steps e = k TRAIN_FD_DL / g2 for k of ``ladder``
+    (ascending; see FD_LADDER), taken outward from k = 1 until two
+    steps adjacent on the ladder both meet TRAIN_FD_RTOL; a ladder of
+    one step is held at that step alone.  ``diff(e)`` gives {"rel":
+    |difference / slope - 1|, ...}.  Returns {"g2", "rel": the larger
+    reading of the best adjacent pair (of the one step), "tries": each
+    step's reading with its "k" and "e", by k}; a leaf without a
+    gradient has nothing to difference (rel 0)."""
+    if g2 == 0.0:
+        return {"g2": 0.0, "rel": 0.0, "tries": []}
+    order = sorted(range(len(ladder)),
+                   key=lambda i: (round(abs(math.log10(ladder[i])), 6),
+                                  -ladder[i]))
+    got: dict = {}
+
+    def best() -> float:
+        if len(ladder) == 1:
+            return got[0]["rel"]
+        return min((max(got[i]["rel"], got[i + 1]["rel"])
+                    for i in range(len(ladder) - 1)
+                    if i in got and i + 1 in got), default=math.inf)
+
+    for i in order:
+        e = ladder[i] * TRAIN_FD_DL / g2
+        got[i] = dict(diff(e), k=ladder[i], e=e)
+        if best() <= TRAIN_FD_RTOL:
+            break
+    return {"g2": g2, "rel": best(), "tries": [got[i] for i in sorted(got)]}
+
+
+def _fd_text(fd: dict) -> str:
+    """``_fd_leaf``'s readings by leaf: the gate's reading, then each
+    step taken (k: reading, and the tokens an MoE's perturbed passes
+    routed apart and left out) where there was more than one."""
+    def tries(r) -> str:
+        if len(r["tries"]) < 2 and not any(
+                any(t.get("apart", ())) for t in r["tries"]):
+            return ""
+        return " (at e x " + ", ".join(
+            f"{t['k']:g}: {t['rel']:.2e}" + (
+                " ({}, {} tokens routed apart)".format(*t["apart"])
+                if any(t.get("apart", ())) else "")
+            for t in r["tries"]) + ")"
+    return (f"central differences / ||g||^2 - 1 by leaf (gate "
+            f"{TRAIN_FD_RTOL}): " + ", ".join(
+                f"{n} {r['rel']:.2e}{tries(r)}" if r["g2"] else f"{n} none"
+                for n, r in fd.items()))
+
+
+def _witness_gates(what: str, res: dict, grad_tol: float) -> None:
+    """Raise where a leaf's central differences (``_fd_leaf``) miss
+    TRAIN_FD_RTOL or its bf16 gradient is over ``grad_tol`` off its f32
+    twin's (leaves named "embed[batch rows]" are held apart)."""
+    worst_fd = max(res["fd"].items(), key=lambda kv: kv[1]["rel"])
+    if worst_fd[1]["rel"] > TRAIN_FD_RTOL:
+        raise AssertionError(f"{what}: the f32 gradient of {worst_fd[0]} "
+                             f"disagrees with central differences: "
+                             f"{worst_fd[1]}")
+    worst_bf = max(((n, v) for n, v in res["grad_bf16_vs_f32"].items()
+                    if n != "embed[batch rows]"), key=lambda kv: kv[1])
+    if worst_bf[1] > grad_tol:
+        raise AssertionError(f"{what}: the bf16 gradient of {worst_bf[0]} "
+                             f"is {worst_bf[1]} off its f32 twin's (gate "
+                             f"{grad_tol})")
+
+
+def _witness_arm(cfg, params: dict, batch: dict, labels, suffix: str,
+                 out: dict) -> None:
+    """``sublayer_witness`` for each label, on the inputs the bf16
+    forward gives it (``sublayer_inputs``)."""
+    inputs = sublayer_inputs(cfg, params, batch, labels)
+    for label in labels:
+        h, p, layer = inputs.pop(label)
+        out[label] = sublayer_witness(cfg, label, h, p, suffix=suffix)
+        out[label]["layer"] = layer
+        del h, p
+
+
+class _Laps:
+    """Wall seconds by stage: ``lap(name)`` adds the time since the last
+    lap to ``name``'s."""
+
+    def __init__(self):
+        self.t, self.s = time.perf_counter(), {}
+
+    def lap(self, name: str) -> None:
+        now = time.perf_counter()
+        self.s[name] = self.s.get(name, 0.0) + now - self.t
+        self.t = now
+
+    def __str__(self) -> str:
+        return ", ".join(f"{k} {v:.1f}" for k, v in self.s.items())
+
+
+def train_arm(arm: dict, dev, reduced: bool, root: str,
+              suffix: str) -> dict:
+    """Phase 10b (a) and (c) for one arm (see TRAIN_ARMS)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = _arm_config(arm, reduced)
+    name, B = cfg.name, arm["B"]
+    T = TRAIN_ARMS_REDUCED_T if reduced else TRAIN_T
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers)
+                if cfg.layer_kind(i) != "rwkv6")
+    mods = _all_kernel_modules()
+    t_arm = time.perf_counter()
+    laps = _Laps()
+    _card_free(dev)
+    _card_reset_peak(dev)
+    tr = Trainer(cfg, O.OptimizerConfig(),
+                 TrainerConfig(workdir=os.path.join(root, name),
+                               total_steps=TRAIN_ARMS_STEPS, ckpt_every=0,
+                               warmup_steps=0, log_every=1,
+                               peak_lr=TRAIN_ARMS_REDUCED_LR if reduced
+                               else TRAIN_PEAK_LR), device=dev)
+    _card_sync(dev)
+    build_s = time.perf_counter() - t_arm
+    n_params = sum(t.numel() for t in _leaves(tr.params))
+    state_gb = sum(t.numel() * t.element_size()
+                   for t in O.tree_leaves({"p": tr.params,
+                                           "o": tr.opt_state})) / 1e9
+    embed = (tr.params["embed"].detach().clone() if cfg.frontend
+             else None)
+    laps.lap("build")
+    batches = arm_batches(cfg, B, T, TRAIN_ARMS_STEPS,
+                          os.path.join(root, name + "_shards"), embed)
+    del embed
+    laps.lap("batches")
+    full = get_arch(arm["arch"])
+    cut = (f" (cut from {full.n_layers})" if not reduced and arm["cut"]
+           else "")
+    say("train-arms", f"{name}: {cfg.n_layers} layers{cut}, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab_size}, input "
+        f"{'embeds' if cfg.frontend else 'tokens'}, {n_moe} MoE layers "
+        f"(capacity factor {cfg.capacity_factor}): {n_params} parameters "
+        f"({cfg.param_dtype}), params + AdamW f32 moments {state_gb:.2f} GB "
+        f"(+ bf16 grads {n_params * 2 / 1e9:.2f} GB in a step), built in "
+        f"{build_s:.2f}s; {TRAIN_ARMS_STEPS} batches of {B} x {T}"
+        + ("" if full.n_layers == cfg.n_layers or reduced else
+           f"; whole, its 12 bytes a parameter would take "
+           f"{full.param_count() * 12 / 1e9:.1f} GB") + suffix)
+    # (c) on the step-0 weights, as phase 10 (e): there each weight that
+    # reaches the loss only through a zero-initialised one (RWKV-6's
+    # LoRA factors and mu_w) has no gradient in either twin, where
+    # trained weights give it a gradient too small for the e ||g||^2
+    # rule (e near 1e17 for rwkv6-3b-reduced after 4 steps).
+    witness: dict = {}
+    first = {k: torch.as_tensor(v).to(dev) for k, v in batches[0].items()}
+    _witness_arm(cfg, tr.params, first, arm["witness"], suffix, witness)
+    laps.lap("witness")
+    if arm["whole"]:
+        witness["whole"] = whole_witness(cfg, tr.params, first,
+                                         arm["whole"], suffix)
+        laps.lap("whole witness")
+    del first
+    _card_free(dev)
+    # (a) the steps
+    _zero_all_counters(mods)
+    _card_reset_peak(dev)
+    resident = []
+    for b in batches[:-1]:
+        tr.run(iter([b]), 1)
+        resident.append(_card_bytes(dev))
+    peak0 = _card_bytes(dev, peak=True)
+    with _profiled(dev, bool(n_moe)) as prof:
+        tr.run(iter(batches[-1:]), 1)
+        _card_sync(dev)
+    laps.lap("steps")
+    launches = {k: m.launches for k, m in mods.items()}
+    log = list(tr.metrics_log)
+    say("train-arms", f"{name} kernel launches in the {TRAIN_ARMS_STEPS} "
+        f"steps (counters zeroed just before): {launches}")
+    say("train-arms", f"{name} allocated after each step (GB): "
+        f"{[round(x / 1e9, 3) for x in resident]}")
+    losses = [r["loss"] for r in log]
+    step_s = statistics.median(r["sec"] for r in log[1:-1])
+    row = {"arch": name, "n_layers": cfg.n_layers, "params": n_params,
+           "B": B, "T": T, "state_gb": state_gb, "losses": losses,
+           "grad_norms": [r["grad_norm"] for r in log],
+           "step_s": [r["sec"] for r in log],
+           "step_ms_median": step_s * 1e3,
+           "tokens_per_s": B * T / step_s, "peak_gb": peak0 / 1e9,
+           "launches": launches, "build_s": build_s, "witness": witness}
+    say("train-arms", f"{name} losses {[round(x, 4) for x in losses]}, "
+        f"grad norms {[round(r['grad_norm'], 3) for r in log]}; step ms "
+        f"(steps 1..{TRAIN_ARMS_STEPS - 2}, median) {step_s * 1e3:.1f} of "
+        f"{[round(r['sec'] * 1e3, 1) for r in log]}; "
+        f"{row['tokens_per_s']:.1f} tokens/s; peak {peak0 / 1e9:.2f} GB; "
+        f"state {state_gb:.2f} GB" + suffix)
+    row["profiled_step"] = _say_profile(name, "profiled last step", prof,
+                                        n_moe, suffix)
+    del prof
+    laps.lap("profile")
+    if any(launches.values()):
+        raise AssertionError(f"{name}: training launched kernels: "
+                             f"{launches}")
+    for r in log:
+        if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])):
+            raise AssertionError(f"{name}: non-finite training step: {r}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{name}: loss did not fall: {losses}")
+    if len(set(resident)) != 1:
+        raise AssertionError(f"{name}: a training step left tensors "
+                             f"behind: {resident}")
+    if dev.type == "cuda":
+        row["largest"] = largest_batch(tr, batches, B, step_s, dev, suffix)
+        laps.lap("largest")
+    tr.close()
+    del tr, batches
+    _card_free(dev)
+    laps.lap("free")
+    row["s"] = time.perf_counter() - t_arm
+    row["laps_s"] = laps.s
+    say("train-arms", f"{name} done in {row['s']:.1f}s ({laps})" + suffix)
+    return row
+
+
+def whole_witness(cfg, params: dict, batch: dict, depth: int,
+                  suffix: str = "") -> dict:
+    """rwkv6's whole-model f32 twin (``train_witness`` on the ladder of
+    FD_LADDER, its bf16 gradient printed, not gated) on the first
+    ``depth`` layers' weights (views) with the embedding, final norm
+    and unembedding, on the first row of ``batch``.  Every layer's bonus
+    u is drawn anew, U(0, 1) from seed 0 (new tensors; ``params`` is
+    left as it was): at the step-0 u = 0 each head's output at position
+    0 is 0 and its group norm sits where it bends most (see
+    TRAIN_ARMS)."""
+    import dataclasses
+    import torch
+    from repro_torch.models import model as M
+    c_w = dataclasses.replace(cfg, n_layers=min(depth, cfg.n_layers))
+    blocks = M.tree_map(lambda t: t[:c_w.n_superblocks], params["blocks"])
+    gen = torch.Generator(device=params["embed"].device).manual_seed(0)
+    blocks = {k: dict(b, mixer=dict(b["mixer"], u=torch.rand(
+                  b["mixer"]["u"].shape, generator=gen,
+                  device=b["mixer"]["u"].device).to(b["mixer"]["u"].dtype)))
+              for k, b in blocks.items()}
+    one = {k: v[:1] for k, v in batch.items()}
+    t0 = time.perf_counter()
+    res = train_witness(c_w, dict(params, blocks=blocks), one,
+                        tag="train-arms", sign_steps=False, bf16_gates=False,
+                        ladder=FD_LADDER, suffix=suffix)
+    res["s"] = time.perf_counter() - t0
+    res["n_layers"] = c_w.n_layers
+    say("train-arms", f"{cfg.name} whole-model witness ({c_w.n_layers} of "
+        f"{cfg.n_layers} layers, u drawn) in {res['s']:.1f}s" + suffix)
+    return res
+
+
+def grad_arm(arm: dict, dev, reduced: bool, root: str, suffix: str) -> dict:
+    """Phase 10b (b) and (c): one ``launch.steps.value_and_grad`` of
+    jamba's period at B x TRAIN_T, profiled (and at one row more where
+    its peak says that fits); the loss and every gradient
+    finite, no kernel launched; then its sublayer witnesses."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as O
+    cfg = _arm_config(arm, reduced)
+    name, B = cfg.name, arm["B"]
+    T = TRAIN_ARMS_REDUCED_T if reduced else TRAIN_T
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers)
+                if cfg.layer_kind(i) != "rwkv6")
+    mods = _all_kernel_modules()
+    t_arm = time.perf_counter()
+    laps = _Laps()
+    _card_free(dev)
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+    _card_sync(dev)
+    laps.lap("build")
+    n_params = sum(t.numel() for t in _leaves(params))
+    gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    batch = arm_batches(cfg, B + 1, T, 1, os.path.join(root, name))[0]
+    laps.lap("batches")
+    full = get_arch(arm["arch"])
+    say("train-arms", f"{name}: {cfg.n_layers} layers"
+        + ("" if reduced else f" (one period, cut from {full.n_layers}: "
+           f"with AdamW's moments one period takes "
+           f"{n_params * 12 / 1e9:.1f} GB, the whole model "
+           f"{full.param_count() * 12 / 1e9:.1f} GB)")
+        + f", {n_moe} MoE layers: {n_params} parameters, {gb:.2f} GB of "
+        f"weights (+ {n_params * 2 / 1e9:.2f} GB of bf16 gradients), drawn "
+        f"in {time.perf_counter() - t_arm:.2f}s" + suffix)
+    row = {"arch": name, "n_layers": cfg.n_layers, "params": n_params,
+           "weights_gb": gb, "T": T, "runs": {}}
+    resident = _card_bytes(dev)
+
+    def run(b: int, profiled: bool) -> None:
+        one = {k: torch.from_numpy(v[:b]).to(dev) for k, v in batch.items()}
+        _card_free(dev)
+        _card_reset_peak(dev)
+        _zero_all_counters(mods)
+        t0 = time.perf_counter()
+        if profiled:
+            # the kernels alone: the MoE stages' ranges would need the
+            # host's events too, which the Mamba scan's many small
+            # operations make slow to parse
+            with _profiled(dev, False) as prof:
+                loss, grads = ST.value_and_grad(cfg, params, one,
+                                                remat_policy="nothing")
+                _card_sync(dev)
+        else:
+            loss, grads = ST.value_and_grad(cfg, params, one,
+                                            remat_policy="nothing")
+        _card_sync(dev)
+        sec = time.perf_counter() - t0
+        laps.lap("value_and_grad")
+        peak = _card_bytes(dev, peak=True)
+        launches = {k: m.launches for k, m in mods.items()}
+        finite = bool(torch.isfinite(loss)) and all(
+            bool(torch.isfinite(g).all()) for g in O.tree_leaves(grads))
+        norm = float(torch.stack([g.float().norm()
+                                  for g in O.tree_leaves(grads)]).norm())
+        del grads
+        r = {"loss": loss.item(), "grad_norm": norm, "finite": finite,
+             "s": sec, "peak_gb": peak / 1e9, "launches": launches}
+        say("train-arms", f"{name} value_and_grad at {b} x {T}"
+            f"{' (profiled)' if profiled else ''}: loss {r['loss']:.6f}, "
+            f"grad norm {norm:.4g}, finite {finite}; {sec:.3f}s; peak "
+            f"{peak / 1e9:.2f} GB ({(peak - resident) / 1e9:.2f} over the "
+            f"weights); launches {launches}" + suffix)
+        if profiled:
+            r["profile"] = _say_profile(name, "value_and_grad (forward, "
+                                        "recompute, backward)", prof, 0,
+                                        suffix)
+            laps.lap("profile")
+        row["runs"][b] = r
+        if not finite or any(launches.values()):
+            raise AssertionError(f"{name}: value_and_grad at {b} rows: "
+                                 f"finite {finite}, launches {launches}")
+
+    run(B, profiled=True)
+    if dev.type == "cuda":
+        # the peak's bytes over weights and gradients grow with rows
+        total = torch.cuda.mem_get_info()[1]
+        peak = row["runs"][B]["peak_gb"] * 1e9
+        more = peak + (peak - resident - n_params * 2) / B
+        fits = more < total - TRAIN_ARMS_HEADROOM
+        say("train-arms", f"{name}: {B + 1} rows would peak near "
+            f"{more / 1e9:.2f} GB of {total / 1e9:.2f}: "
+            f"{'run' if fits else 'not run'}" + suffix)
+        if fits:
+            run(B + 1, profiled=False)
+    row["witness"] = {}
+    first = {k: torch.from_numpy(v[:B]).to(dev) for k, v in batch.items()}
+    _witness_arm(cfg, params, first, arm["witness"], suffix,
+                 row["witness"])
+    laps.lap("witness")
+    del params, first
+    _card_free(dev)
+    laps.lap("free")
+    row["s"] = time.perf_counter() - t_arm
+    row["laps_s"] = laps.s
+    say("train-arms", f"{name} done in {row['s']:.1f}s ({laps})" + suffix)
+    return row
+
+
+def phase_train_arms(device: str = "cuda", reduced: bool = False,
+                     root: str | None = None, card: str = "") -> dict:
+    """Phase 10b (TRAIN_ARMS above): rwkv6-3b, musicgen-medium (embeds)
+    and qwen3-moe-30b-a3b (8 of 48 layers) trained through Trainer at
+    full width, with every kernel counter zeroed just before and read
+    as 0 just after, finite losses and grad norms, a last loss below
+    the first and allocated memory flat from step to step, then the
+    largest batch that fits; jamba-v0.1-52b's period by one
+    value_and_grad; the sublayer witnesses, and rwkv6's whole-model f32
+    twin.  ``device`` is the card but for a dry run of the phase's code
+    on the CPU, ``reduced`` the reduced configs (not cut) at
+    TRAIN_ARMS_REDUCED_T tokens; ``root`` holds the token stores."""
+    import torch
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    root = root or os.path.join(WORK, "train_arms")
+    shutil.rmtree(root, ignore_errors=True)
+    suffix = f" [{card}]" if card else ""
+    out: dict = {}
+    for arm in TRAIN_ARMS:
+        out[arm["arch"]] = train_arm(arm, dev, reduced, root, suffix)
+    arm = TRAIN_ARMS_GRAD
+    out[arm["arch"]] = grad_arm(arm, dev, reduced, root, suffix)
+    out["phase_s"] = time.perf_counter() - t_phase
+    say("train-arms", f"phase 10b in {out['phase_s']:.1f}s" + suffix)
     return out
 
 
@@ -4207,13 +5174,20 @@ def _mesh_on_card(train: dict, card: str) -> dict:
     return out
 
 
-def train_witness(cfg, w16: dict, batch: dict) -> dict:
+def train_witness(cfg, w16: dict, batch: dict, tag: str = "train",
+                  sign_steps: bool = True, bf16_gates: bool = True,
+                  ladder: tuple = (1.0,), suffix: str = "") -> dict:
     """Phase 10 (e) on ``cfg`` (bf16) at weights ``w16`` and ``batch``
     (tensors on one device): the f32 twin's gradient against central
-    differences of its loss, leaf by leaf; the bf16 gradient against the
-    f32 twin's; and the loss after a sign step of each TRAIN_WIT_ETAS in
-    f32 and in bf16 (see the constants).  Raises if a gradient check
-    fails; ``w16`` is left as it was."""
+    differences of its loss, leaf by leaf, at phase 10's single e (at
+    the steps of ``ladder``: ``_fd_leaf``); the bf16 gradient against the
+    f32 twin's (printed, not gated, without ``bf16_gates``); and, with
+    ``sign_steps``, the loss after a sign step of each TRAIN_WIT_ETAS
+    in f32 and in bf16 (see the constants).  Raises if a gradient check
+    fails; ``w16`` is left as it was.  A leaf without a gradient in the
+    f32 twin (an untied embedding's rows that the batch does not look
+    up; a weight that reaches the loss only through a zero-initialised
+    one) has none to difference."""
     import dataclasses
     import torch
     from repro_torch.launch import steps as ST
@@ -4236,43 +5210,45 @@ def train_witness(cfg, w16: dict, batch: dict) -> dict:
                  "grad_bf16_vs_f32": {}, "fd": {}}
     for n, a, b in zip(names, G16, G32):
         if n != "embed":
-            res["grad_bf16_vs_f32"][n] = float((a.float() - b).norm()
-                                               / b.norm())
+            res["grad_bf16_vs_f32"][n] = _rel_err(a, b)
             continue
         # the rows the batch's tokens look up, apart (see the constants)
         rows = torch.zeros(a.shape[0], dtype=torch.bool, device=a.device)
         rows[batch["tokens"].flatten().long()] = True
         for part, m in (("embed[batch rows]", rows),
                         ("embed[other rows]", ~rows)):
-            res["grad_bf16_vs_f32"][part] = float(
-                (a[m].float() - b[m]).norm() / b[m].norm())
+            res["grad_bf16_vs_f32"][part] = _rel_err(a[m], b[m])
         res["embed_batch_rows"] = int(rows.sum())
     # central differences along each leaf's own gradient; w32 is
     # restored exactly from w16 (it is w16 widened)
     for n, w, src, g in zip(names, W32, W16, G32):
         g2 = float(g.norm()) ** 2
-        e = TRAIN_FD_DL / g2
-        w.copy_(src).add_(g, alpha=e)
-        lp = loss(cfg32, w32)
-        w.copy_(src).add_(g, alpha=-e)
-        lm = loss(cfg32, w32)
-        w.copy_(src)
-        fd = (lp - lm) / (2 * e)
-        res["fd"][n] = {"fd": fd, "g2": g2, "rel": abs(fd - g2) / g2}
+
+        def diff(e: float) -> dict:
+            w.copy_(src).add_(g, alpha=e)
+            lp = loss(cfg32, w32)
+            w.copy_(src).add_(g, alpha=-e)
+            lm = loss(cfg32, w32)
+            w.copy_(src)
+            return {"rel": abs((lp - lm) / (2 * e) - g2) / g2}
+        res["fd"][n] = _fd_leaf(diff, g2, ladder)
     # sign steps: f32 from w32, bf16 from w16 (restored from w32)
+    res["sign_step"] = None
     n16 = sum(w.numel() for w in W16 if w.dtype != torch.float32)
-    res["sign_step"] = {"eta": list(TRAIN_WIT_ETAS), "f32": [],
-                        "f32_first_order": [], "bf16": [],
-                        "bf16_changed_share": []}
+    etas = TRAIN_WIT_ETAS if sign_steps else ()
+    if sign_steps:
+        res["sign_step"] = {"eta": list(TRAIN_WIT_ETAS), "f32": [],
+                            "f32_first_order": [], "bf16": [],
+                            "bf16_changed_share": []}
     g1 = sum(float(g.abs().sum()) for g in G32)
-    for eta in TRAIN_WIT_ETAS:
+    for eta in etas:
         for w, src, g in zip(W32, W16, G32):
             w.copy_(src).add_(torch.sign(g), alpha=-eta)
         res["sign_step"]["f32"].append(loss(cfg32, w32))
         res["sign_step"]["f32_first_order"].append(l32.item() - eta * g1)
     for w, src in zip(W32, W16):
         w.copy_(src)
-    for eta in TRAIN_WIT_ETAS:
+    for eta in etas:
         changed = 0
         for w, src, g in zip(W16, W32, G16):
             new = (src - eta * torch.sign(g.float())).to(w.dtype)
@@ -4285,40 +5261,37 @@ def train_witness(cfg, w16: dict, batch: dict) -> dict:
             w.copy_(src)
     del w32, g16, g32, W32, G16, G32
 
-    worst_fd = max(res["fd"].items(), key=lambda kv: kv[1]["rel"])
-    worst_bf = max(((n, v) for n, v in res["grad_bf16_vs_f32"].items()
-                    if n != "embed[batch rows]"), key=lambda kv: kv[1])
     embed_bf = res["grad_bf16_vs_f32"]["embed[batch rows]"]
     loss_rel = abs(res["loss_bf16"] - res["loss_f32"]) / res["loss_f32"]
     res["loss_rel"] = loss_rel
-    say("train", f"witness ({cfg.name}, {tuple(batch['labels'].shape)} "
-                 f"tokens): loss bf16 {res['loss_bf16']:.6f}, f32 twin "
-                 f"{res['loss_f32']:.6f} (rel {loss_rel:.3e})")
-    say("train", "central differences / ||g||^2 - 1 by leaf (f32 twin, "
-                 f"gate {TRAIN_FD_RTOL}): " + ", ".join(
-                     f"{n} {r['rel']:.2e} (||g||^2 {r['g2']:.4g})"
-                     for n, r in res["fd"].items()))
-    say("train", "||g_bf16 - g_f32|| / ||g_f32|| by leaf (gate "
-                 f"{TRAIN_BF16_GRAD_TOL}; embed's {res['embed_batch_rows']} "
-                 f"batch rows {TRAIN_BF16_EMBED_TOL}): " + ", ".join(
-                     f"{n} {v:.4f}" for n, v in
-                     res["grad_bf16_vs_f32"].items()))
+    grad_tol, embed_tol = ((TRAIN_BF16_GRAD_TOL, TRAIN_BF16_EMBED_TOL)
+                           if bf16_gates else (math.inf, math.inf))
+    loss_tol = TRAIN_BF16_LOSS_RTOL
+    say(tag, f"witness ({cfg.name}, {tuple(batch['labels'].shape)} "
+             f"tokens): loss bf16 {res['loss_bf16']:.6f}, f32 twin "
+             f"{res['loss_f32']:.6f} (rel {loss_rel:.3e}, gate {loss_tol})"
+             + suffix)
+    say(tag, "f32 twin's " + _fd_text(res["fd"]) + suffix)
+    say(tag, "||g_bf16 - g_f32|| / ||g_f32|| by leaf (" + (
+             f"gate {grad_tol}; embed's {res['embed_batch_rows']} batch "
+             f"rows {embed_tol}" if bf16_gates else "not gated") + "): "
+             + ", ".join(
+                 f"{n} {v:.4f}" for n, v in
+                 res["grad_bf16_vs_f32"].items()) + suffix)
     st = res["sign_step"]
-    say("train", f"loss after w - eta sign(g), eta {st['eta']}: f32 "
+    if st:
+        say(tag, f"loss after w - eta sign(g), eta {st['eta']}: f32 "
                  f"{[round(x, 4) for x in st['f32']]} (first order "
                  f"{[round(x, 2) for x in st['f32_first_order']]}; from "
                  f"{res['loss_f32']:.4f}), bf16 "
                  f"{[round(x, 4) for x in st['bf16']]} (bf16 elements "
-                 f"changed {[round(x, 4) for x in st['bf16_changed_share']]})")
-    if worst_fd[1]["rel"] > TRAIN_FD_RTOL:
-        raise AssertionError(f"the f32 gradient of {worst_fd[0]} disagrees "
-                             f"with central differences: {worst_fd[1]}")
-    if worst_bf[1] > TRAIN_BF16_GRAD_TOL or loss_rel > TRAIN_BF16_LOSS_RTOL \
-            or embed_bf > TRAIN_BF16_EMBED_TOL:
-        raise AssertionError(f"the bf16 gradient of {worst_bf[0]}, the "
-                             f"embedding's batch rows or the loss is off "
-                             f"its f32 twin's: {worst_bf[1]}, {embed_bf}, "
-                             f"{loss_rel}")
+                 f"changed {[round(x, 4) for x in st['bf16_changed_share']]})"
+                 + suffix)
+    _witness_gates(cfg.name, res, grad_tol)
+    if loss_rel > loss_tol or embed_bf > embed_tol:
+        raise AssertionError(f"{cfg.name}: the embedding's batch rows' bf16 "
+                             f"gradient or the bf16 loss is off its f32 "
+                             f"twin's: {embed_bf}, {loss_rel}")
     return res
 
 
@@ -4349,26 +5322,27 @@ def _widened(tree):
             else v.to(torch.float32, copy=True) for k, v in tree.items()}
 
 
-def _device_busy(prof) -> dict:
-    """Device time (ms) by kernel name from a torch.profiler run.  The
+def _device_busy(prof, averages=None) -> dict:
+    """Device time (ms) by kernel name from a torch.profiler run (or its
+    ``key_averages()``, ``averages``, where the caller has them).  The
     MoE stages' ``record_function`` ranges, which the profiler may also
     show on the device's timeline, are not kernels and are left out."""
     import torch
     cuda = torch.autograd.DeviceType.CUDA
     return {e.key: getattr(e, "self_device_time_total", 0.0) / 1e3
-            for e in prof.key_averages()
+            for e in (averages or prof.key_averages())
             if getattr(e, "device_type", None) == cuda
             and e.key not in MOE_STAGES}
 
 
-def _stage_device_ms(prof) -> dict:
+def _stage_device_ms(prof, averages=None) -> dict:
     """Device time (ms) of the kernels launched inside each MoE stage's
     ``record_function`` range (CPU-side totals, which include every
-    kernel its ops launched)."""
+    kernel its ops launched); ``averages`` as for ``_device_busy``."""
     import torch
     cpu = torch.autograd.DeviceType.CPU
     out = dict.fromkeys(MOE_STAGES, 0.0)
-    for e in prof.key_averages():
+    for e in (averages or prof.key_averages()):
         if e.key in out and getattr(e, "device_type", None) == cpu:
             out[e.key] += getattr(e, "device_time_total", 0.0) / 1e3
     return out
@@ -4448,6 +5422,8 @@ def main() -> int:
     dry = start_dryrun()
     try:
         train = timed("10 train", phase_train)
+        train_arms = timed("10b train-arms", phase_train_arms, "cuda",
+                           False, None, card)
         timed("11 mesh", phase_mesh, train, card, dry)
     finally:
         stop_dryrun(dry)
@@ -4556,6 +5532,10 @@ def main() -> int:
         "lm_arms": arms,
         "launches_lm_wide": {n: r["launches"] for n, r in wide.items()},
         "lm_wide": wide,
+        "launches_train_arms": {
+            n: (r["launches"] if "launches" in r else
+                r["runs"][min(r["runs"])]["launches"])["flash_attention"]
+            for n, r in train_arms.items() if isinstance(r, dict)},
     })
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))

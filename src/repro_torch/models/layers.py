@@ -256,7 +256,42 @@ def einsum(eq: str, a: torch.Tensor, b: torch.Tensor,
     dt = F32 if out == F32 else torch.promote_types(a.dtype, b.dtype)
     if is_dtensor(a) or is_dtensor(b):
         return _einsum_sharded(eq, a.to(dt), b.to(dt)).to(out)
-    return torch.einsum(eq, a.to(dt), b.to(dt)).to(out)
+    if a.dtype != dt or b.dtype != dt:
+        return _WideningEinsum.apply(eq, a, b, dt).to(out)
+    return torch.einsum(eq, a, b).to(out)
+
+
+class _WideningEinsum(torch.autograd.Function):
+    """``torch.einsum(eq, a.to(dt), b.to(dt))`` that keeps ``a`` and ``b``
+    for its backward as they came and widens them again there.  Autograd
+    of the casts would keep the widened copies: for a bf16 weight a new
+    tensor twice its size, alive until the backward, where the reference
+    (XLA's ``preferred_element_type``) keeps the bf16 operands.  The
+    backward of one checkpointed jamba-v0.1-52b period kept its 4 MoE
+    layers' experts widened (11.3 GB a layer by their shapes) beside
+    53.2 GB of weights and gradients, and ran out of an 80 GB card's
+    memory at 1 x 1024 tokens.  The products and the gradients' casts to
+    each operand's dtype are the ones autograd of the casts computes."""
+
+    @staticmethod
+    def forward(ctx, eq: str, a, b, dt):
+        ctx.eq, ctx.dt = eq, dt
+        ctx.save_for_backward(a, b)
+        return torch.einsum(eq, a.to(dt), b.to(dt))
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ins, out = ctx.eq.split("->")
+        la, lb = ins.split(",")
+        ga = gb = None
+        if ctx.needs_input_grad[1]:
+            ga = torch.einsum(f"{out},{lb}->{la}", g,
+                              b.to(ctx.dt)).to(a.dtype)
+        if ctx.needs_input_grad[2]:
+            gb = torch.einsum(f"{la},{out}->{lb}", a.to(ctx.dt),
+                              g).to(b.dtype)
+        return None, ga, gb, None
 
 
 def _einsum_sharded(eq: str, a, b):

@@ -288,54 +288,68 @@ def rwkv6_time_mix(x: torch.Tensor, p: dict, *, head_dim: int,
 def _wkv(r, k, v, logw, S, u, head_dim: int, chunk: int):
     """The chunked WKV recurrence of (B, T, D) r, k, v and log decays
     from the state S (B, H, dk, dv; zeros when None), with the bonus u
-    (H, dk), then the per-head group norm: (o (B, T, D), S at the end)."""
+    (H, dk), then the per-head group norm: (o (B, T, D), S at the end).
+    The chunks go in groups whose (B, G, H, dk, dv) f32 states hold
+    within ``layers.F32_CHUNK_BYTES`` (a prime T runs one-step chunks,
+    so one group of all of them would hold T states).  Within a group
+    every chunk's own terms (its decays, its intra-chunk products, its
+    contribution to the state) are taken at once; only the state is
+    carried from chunk to chunk, two operations a chunk, so that a long
+    sequence costs a few hundred operations, not some twenty a chunk."""
     B, T, D = r.shape
     H = D // head_dim
-    r = r.reshape(B, T, H, head_dim)
-    k = k.reshape(B, T, H, head_dim)
-    v = v.reshape(B, T, H, head_dim)
-    logw = logw.reshape(B, T, H, head_dim)
-    u = u.to(F32)                                            # (H, dk)
-
     n_chunks, ck = _chunks_of(T, chunk)
+    shape = (B, n_chunks, ck, H, head_dim)
+    r, k, v, logw = (t.reshape(shape) for t in (r, k, v, logw))
+    u = u.to(F32)                                            # (H, dk)
     ti = torch.arange(ck, device=r.device)[:, None]
     si = torch.arange(ck, device=r.device)[None, :]
     below = si < ti
     if S is None:
         S = torch.zeros((B, H, head_dim, head_dim), dtype=F32,
                         device=r.device)
+    per = L.per_chunk(n_chunks, B * H * head_dim * head_dim * 4)
     os_ = []
-    for c in range(n_chunks):
-        sl = slice(c * ck, (c + 1) * ck)
-        rr, kk, vv, ww = r[:, sl], k[:, sl], v[:, sl], logw[:, sl]
-        cw = torch.cumsum(ww, dim=1)            # inclusive log-decay prefix
-        # Contribution of the pre-chunk state S to o_t:
-        # r_t . (diag(exp(cw_{t-1})) S) with cw_{t-1} = cw_t - ww_t.
-        decay_in = torch.exp(cw - ww)           # (B, ck, H, dk)
-        qd = rr * decay_in                      # (B,t,H,dk)
-        o_inter = einsum("bthk,bhkv->bthv", qd, S, F32)
-        # intra-chunk: pairwise decays exp(cw_{t-1} - cw_s) for s < t,
-        # bonus u at s == t.
-        kd = kk * torch.exp(-cw)                # (B,s,H,dk)
-        att = einsum("bthk,bshk->bhts", qd, kd, F32)
-        att = torch.where(below, att, 0.0)
-        bonus = einsum("bthk,bthk->bth", rr, u[None, None] * kk, F32)
-        o_intra = einsum("bhts,bshv->bthv", att, vv, F32)
-        o_intra = o_intra + bonus[..., None] * vv
-        # state update to end of chunk: S' = diag(exp(cw_L)) S +
-        #   sum_s exp(cw_L - cw_s) k_s v_s^T
-        cw_last = cw[:, -1:]                     # (B,1,H,dk)
-        S = torch.exp(cw_last[:, 0])[..., None] * S \
-            + einsum("bshk,bshv->bhkv", kk * torch.exp(cw_last - cw), vv,
-                     F32)
-        os_.append(o_inter + o_intra)
-    o = torch.cat(os_, dim=1)                    # (B, T, H, dk)
+    for c0 in range(0, n_chunks, per):
+        g = slice(c0, c0 + per)
+        o, S = _wkv_chunks(r[:, g], k[:, g], v[:, g], logw[:, g], S, u,
+                           below)
+        os_.append(o)
+    o = os_[0] if len(os_) == 1 else torch.cat(os_, dim=1)
+    o = o.reshape(B, T, H, head_dim)
 
     # per-head group norm, then gate and output projection
     mean = torch.mean(o, dim=-1, keepdim=True)
     var = torch.var(o, dim=-1, keepdim=True, correction=0)
     o = (o - mean) * torch.rsqrt(var + 64e-5)
     return o.reshape(B, T, D), S
+
+
+def _wkv_chunks(r, k, v, logw, S, u, below):
+    """:func:`_wkv`'s recurrence over a group of (B, c, ck, H, dk)
+    chunks from the state S: (o (B, c, ck, H, dv), S after them)."""
+    cw = torch.cumsum(logw, dim=2)      # inclusive log-decay prefix, a chunk
+    # Contribution of the pre-chunk state S to o_t:
+    # r_t . (diag(exp(cw_{t-1})) S) with cw_{t-1} = cw_t - w_t.
+    qd = r * torch.exp(cw - logw)                            # (B,c,t,H,dk)
+    # intra-chunk: pairwise decays exp(cw_{t-1} - cw_s) for s < t,
+    # bonus u at s == t.
+    kd = k * torch.exp(-cw)                                  # (B,c,s,H,dk)
+    att = einsum("bcthk,bcshk->bchts", qd, kd, F32)
+    att = torch.where(below, att, 0.0)
+    bonus = einsum("bcthk,bcthk->bcth", r, u * k, F32)
+    o = einsum("bchts,bcshv->bcthv", att, v, F32) + bonus[..., None] * v
+    # each chunk's state update: S' = diag(exp(cw_L)) S +
+    #   sum_s exp(cw_L - cw_s) k_s v_s^T, carried chunk to chunk
+    cw_last = cw[:, :, -1:]                                  # (B,c,1,H,dk)
+    own = einsum("bcshk,bcshv->bchkv", k * torch.exp(cw_last - cw), v, F32)
+    keep = torch.exp(cw_last[:, :, 0])[..., None]            # (B,c,H,dk,1)
+    entering = []
+    for c in range(r.shape[1]):
+        entering.append(S)
+        S = keep[:, c] * S + own[:, c]
+    o = o + einsum("bcthk,bchkv->bcthv", qd, torch.stack(entering, 1), F32)
+    return o, S
 
 
 def rwkv6_time_mix_decode(x: torch.Tensor, state: dict, p: dict, *,

@@ -10,12 +10,12 @@ package's order (dict keys sorted), so sums over leaves add in the same
 order.  :func:`apply_updates` writes the new parameters and moments
 into the given tensors under ``torch.no_grad()`` — the port's
 counterpart of the reference's ``donate_argnums`` — and returns the
-same dicts.  Large leaves are updated in slices along their first axis
-(at most :data:`UPDATE_CHUNK` elements each), which keeps the f32
-temporaries of one slice, not of the whole leaf.  The update is
-elementwise, so its values do not depend on the slicing; the global
-norm's f32 sum of squares is added slice by slice (its order of
-additions is the port's own, as torch's and XLA's reductions differ
+same dicts.  Large leaves are updated in slices along their leading
+axes (at most :data:`UPDATE_CHUNK` elements each, :func:`_chunks`),
+which keeps the f32 temporaries of one slice, not of the whole leaf.
+The update is elementwise, so its values do not depend on the slicing;
+the global norm's f32 sum of squares is added slice by slice (its order
+of additions is the port's own, as torch's and XLA's reductions differ
 anyway).
 """
 
@@ -240,13 +240,26 @@ def _write_moment(dst, val: torch.Tensor, cfg: OptimizerConfig) -> None:
 
 
 def _chunks(p: torch.Tensor) -> list:
-    """Index slices of ``p``'s first axis of at most UPDATE_CHUNK
-    elements each (``...``, the whole tensor, when it is small or has
-    fewer than two axes)."""
+    """Indices of ``p`` picking at most UPDATE_CHUNK elements each
+    (``...``, the whole tensor, when it is small or has fewer than two
+    axes): slices of its first axis, and where one index of an axis
+    still holds more, slices of the next (a stacked MoE leaf's
+    superblock: qwen3-moe's wi holds 403M elements), never of the last
+    axis, along which int8 moments quantize."""
     if p.ndim < 2 or p.numel() <= UPDATE_CHUNK or is_dtensor(p):
         return [...]
-    rows = max(1, UPDATE_CHUNK // (p.numel() // p.shape[0]))
-    return [slice(i, i + rows) for i in range(0, p.shape[0], rows)]
+    return _split(tuple(p.shape), ())
+
+
+def _split(shape: tuple, at: tuple) -> list:
+    per = 1
+    for n in shape[1:]:
+        per *= n
+    if per > UPDATE_CHUNK and len(shape) > 2:
+        return [c for i in range(shape[0])
+                for c in _split(shape[1:], at + (i,))]
+    rows = max(1, UPDATE_CHUNK // per)
+    return [at + (slice(i, i + rows),) for i in range(0, shape[0], rows)]
 
 
 def _sub(mom, sl):

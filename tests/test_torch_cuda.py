@@ -1413,24 +1413,37 @@ def _zipf_batches(vocab, n, B=4, T=64, seed=0):
     return out
 
 
-def test_reduced_train_steps_card_match_cpu(dev):
-    """Three AdamW steps of the f32 variant of reduced minicpm-2b from the
+@pytest.mark.parametrize("name", ["minicpm-2b", "qwen3-moe-30b-a3b",
+                                  "jamba-v0.1-52b", "rwkv6-3b",
+                                  "musicgen-medium"])
+def test_reduced_train_steps_card_match_cpu(dev, name):
+    """Three AdamW steps of the f32 variant of a reduced config from the
     same weights: losses within 1e-4 relative, ||card - CPU|| / ||CPU||
     over the parameters within 1e-4 (an element whose gradient is near
-    0 may take Adam's step the other way)."""
+    0 may take Adam's step the other way).  minicpm-2b (dense) and the
+    arms chip_smoke.py's phase 10b trains at full width: MoE routing
+    with drops (qwen3-moe), Mamba, attention and MoE (jamba), RWKV-6
+    (T = 64: two of its 32-token chunks) and musicgen's embeds, looked
+    up in the weights' embedding table from the Zipf tokens as
+    ``launch/train.py`` feeds them."""
     from repro_torch.launch import steps as ST
     from repro_torch.models import model as M
     from repro_torch.train import optimizer as O
-    cfg, host = _reduced_lm("minicpm-2b")
+    cfg, host = _reduced_lm(name)
     tree = M.tree_map(lambda t: t.numpy(), host)
     opt = O.OptimizerConfig(lr=1e-3)
+    batches = _zipf_batches(cfg.vocab_size, 3, seed=1)
+    if cfg.frontend is not None:
+        batches = [{"embeds": host["embed"][torch.from_numpy(b["tokens"])
+                                            .long()].numpy(),
+                    "labels": b["labels"]} for b in batches]
     runs = {}
     for where in ("cuda", "cpu"):
         params = M.params_from_numpy(cfg, tree, where)
         state = O.init_opt_state(params, opt)
         step = ST.make_train_step(cfg, opt)
         losses = []
-        for b in _zipf_batches(cfg.vocab_size, 3, seed=1):
+        for b in batches:
             _, _, met = step(params, state, {k: torch.from_numpy(v).to(where)
                                              for k, v in b.items()})
             losses.append(met["loss"].item())

@@ -196,6 +196,38 @@ def test_updates_in_chunks_equal_one_pass(monkeypatch):
             assert torch.equal(a, b)
 
 
+def test_updates_slice_below_one_leading_index(monkeypatch):
+    """Where one index of the first axis holds more than UPDATE_CHUNK
+    elements (a stacked MoE leaf's superblock), the slices go down the
+    next axes, never the last: each element once, each slice within the
+    budget, and the same bits as one pass, int8 moments included."""
+    monkeypatch.setattr(O, "UPDATE_CHUNK", 100)
+    for shape, n in (((3, 4, 64), 12), ((2, 3, 5, 7), 4), ((2, 9, 10), 2)):
+        cover = torch.zeros(shape, dtype=torch.int32)
+        chunks = O._chunks(cover)
+        for c in chunks:
+            cover[c] += 1
+            assert cover[c].numel() <= max(100, shape[-1])
+        assert len(chunks) == n and bool((cover == 1).all())
+    rng = np.random.default_rng(7)
+    for state_dtype in ("float32", "int8"):
+        cfg = O.OptimizerConfig(state_dtype=state_dtype, lr=1e-2,
+                                grad_clip=1e9)
+        p0 = rng.normal(size=(3, 4, 64)).astype(np.float32)
+        g = torch.from_numpy(rng.normal(size=p0.shape).astype(np.float32))
+        out = []
+        for chunk in (1 << 26, 100):
+            monkeypatch.setattr(O, "UPDATE_CHUNK", chunk)
+            p = {"w": torch.from_numpy(p0.copy())}
+            s = O.init_opt_state(p, cfg)
+            for _ in range(2):
+                O.apply_updates(p, {"w": g}, s, cfg)
+            out.append((p["w"].clone(), O.tree_leaves(s)))
+        assert torch.equal(out[0][0], out[1][0])
+        for a, b in zip(out[0][1], out[1][1]):
+            assert torch.equal(a, b)
+
+
 def _reference_adamw(params, grads, m, v, t, cfg):
     gnorm = np.sqrt(sum((g ** 2).sum() for g in grads.values()))
     clip = min(1.0, cfg.grad_clip / (gnorm + 1e-9))
