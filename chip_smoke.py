@@ -8,16 +8,18 @@ and the CUDA toolkit:
 
 Phases, each printed as it runs:
 
-1. build   — compile ``src/repro_torch/kernels/csrc/*.cu`` (seven
+1. build   — compile ``src/repro_torch/kernels/csrc/*.cu`` (eight
              sources: the five kernels, flash attention having two
-             tensor-core sources, bf16 and f32, and an empty kernel
+             tensor-core sources, bf16/f16 and f32, and a CUDA-core one
+             for head_dims above 256, and an empty kernel
              that times the launch floor; one nvcc each, all started
              together) for sm_90a; print the build time, ptxas'
              registers, spills and shared memory per kernel, the count
              of tensor-core instructions (HGMMA for wgmma, HMMA for
              mma.sync) in the SASS of each instantiation (padded
-             head_dim 32 .. 256) of each flash kernel (``cuobjdump
-             -sass``; an instantiation without HGMMA fails), the SASS
+             head_dim 32 .. 256, and in bf16 and f16) of each tensor-core
+             flash kernel (``cuobjdump -sass``; an instantiation without
+             HGMMA fails), the SASS
              instructions per pair-sample in the inner loop of each
              encounter-screen kernel (its design floor's count), and the
              card's name and power limit.
@@ -112,15 +114,27 @@ Phases, each printed as it runs:
              go through the bf16 tensor-core kernel (route "sm90") and
              every f32 one through the split-TF32 one ("sm90_f32"; route
              counters); each is timed beside the plain version and, at T
-             = S, F.scaled_dot_product_attention (the yardstick only; in
-             f32 its memory-efficient kernel, which runs f32 on the
-             tensor cores, on k and v repeated to H heads outside the
-             timing), with its share of outputs outside the gate, the
-             bound (f32: the split-TF32 products at the TF32 rate) and
-             the bf16 kernel's design floor printed.  ops.flash_attention
+             = S, F.scaled_dot_product_attention as its default
+             dispatcher runs it, backend named (the yardstick only; where
+             no fused backend takes the grouping, as in f32, on k and v
+             repeated to H heads outside the timing), with its share of
+             outputs outside the gate, the bound (f32: the split-TF32
+             products at the TF32 rate) and the bf16 kernel's design
+             floor printed; at stablelm's heads (T = S = 4096) each
+             fused backend forced in turn, in bf16 and f16.  ops.flash_attention
              with block_q = block_k = 64 at stablelm's heads in both
              dtypes, as in phase 2; then one [reference-keywords] line
-             with every such entry and its launch deltas.
+             with every such entry and its launch deltas.  Then the
+             inputs the other routes take: f16 at every shape above
+             held in bf16 (route "sm90_f16", within one f16 rounding:
+             rtol 2^-11, atol 1e-5); head_dims 257, 288, 320, 384, 512,
+             576 and 1024 in f16, bf16 and f32 (route "wide"; causal
+             with T != S, GQA and MQA, a full one, and 257 not a
+             multiple of 8), each within its dtype's gate; two mixes of
+             dtypes and one f64 case (the f32 route for their head_dim,
+             the output in q's dtype, f32 for f64).  Each is timed
+             beside the bound and, at T = S, beside SDPA in the same
+             dtype as above (mixes and f64 on their f32 copies).
 7. lm      — stablelm-12b at full width and depth (40 layers, 12.1 B
              parameters in bf16, random from a seed) on the card:
              init_superblock_params' superblock 0 from the generator
@@ -134,6 +148,20 @@ Phases, each printed as it runs:
              forward; BatchedServer (4 slots, prompt 64, cache 256): one
              warm-up request, then 3 rounds of 8 seeded requests of 16
              new tokens each, every round gated and timed on its own.
+7f. lm-f16 — stablelm-12b with f16 parameters and activations, not cut
+             (40 layers, hd 160, 24.3 GB, random from a seed), on phase
+             7's tokens: forward with "flash" (the counters zeroed just
+             before and read just after: 40 launches, all on the
+             sm90_f16 route) and "xla" within 0.03; the flash forward
+             profiled (device time by kind of kernel); prefill +
+             decode_step against forward (0.05); BatchedServer (one
+             warm-up request, one round of 8, the decode step profiled).
+             A forward that is not finite is reported with the first
+             superblock whose output is not, held against the same
+             superblock on the CPU.  Then reduced stablelm at head_dim
+             320 in bf16 and f32: flash (every launch on the wide route)
+             against xla (0.03 and 1e-3).  Every line ends with the card
+             and its power limit.
 7a. lm-f32 — stablelm-12b with f32 parameters and activations, not cut
              (40 layers, 12.1 B parameters, 48.6 GB, random from a
              seed), on phase 7's tokens: forward with "flash" (the
@@ -427,13 +455,17 @@ FLASH_F32_TOL = 2e-5             # rtol and atol, tests/test_flash_attention.py
 # (unit roundoff 2^-8) of an f32 result.  At the JAX test's bf16 case,
 # whose outputs stay below 4, this is tighter than its max error 0.05.
 FLASH_BF16_RTOL, FLASH_BF16_ATOL = 2.0 ** -8, 1e-5
-BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core rate
+# And an f16 output: one f16 rounding (unit roundoff 2^-11), the same atol
+# (tests/test_torch_flash_dtypes.py).
+FLASH_F16_RTOL, FLASH_F16_ATOL = 2.0 ** -11, 1e-5
+TC16_OPS_PER_S = 989e12          # H100 SXM dense bf16 and f16 tensor-core rate
 TF32_OPS_PER_S = 495e12          # H100 SXM dense TF32 tensor-core rate
 # Phase 7: stablelm-12b at full width and depth.
 LM_ARCH = "stablelm-12b"
 LM_B, LM_T = 2, 2048
 # Phase 6 also holds the kernel at the shape phase 7's forward gives it.
 FLASH_MAIN_PATH_SHAPE = (LM_B, 32, 8, LM_T, LM_T, 160, True)
+FLASH_SDPA_BACKENDS_SHAPE = (1, 32, 8, 4096, 4096, 160, True)
 LM_REL_GATE = 0.03               # flash vs xla logits, tests/test_flash_attention.py
 LM_DECODE_T, LM_DECODE_GATE = 64, 0.05   # tests/test_models.py's gate
 # Phase 7a: stablelm-12b in f32 (parameters and activations), flash vs
@@ -564,6 +596,26 @@ FLASH_GROUPING_SHAPES = ((1, 48, 1, 4096, 4096, 128, True),
 FLASH_KEYWORDS_SHAPE = (1, 32, 8, 512, 512, 160, True)
 FLASH_PADDED_SHAPES = tuple((1, 4, 2, 256, 256, hd, True)
                             for hd in (12, 100, 200))
+# Head_dims past 256 (the wide route), each in f16, bf16 and f32: causal
+# with T != S at 257 (not a multiple of 8) and 576, a full (non-causal)
+# MHA one at 288, MQA at 512, GQA 4:1 and 8:1 at T = S elsewhere.
+FLASH_WIDE_HD_SHAPES = ((1, 8, 2, 700, 900, 257, True),
+                        (2, 8, 8, 512, 512, 288, False),
+                        (1, 16, 4, 1024, 1024, 320, True),
+                        (1, 16, 2, 1024, 1024, 384, True),
+                        (1, 8, 1, 1024, 1024, 512, True),
+                        (1, 8, 2, 640, 1000, 576, True),
+                        (1, 8, 2, 1024, 1024, 1024, True))
+# Inputs the reference takes as f32: two mixes of dtypes (one per f32
+# route) and f64, with the dtypes of q, k and v.
+FLASH_MIXED_CASES = (((1, 32, 8, 2048, 2048, 160, True),
+                      ("bfloat16", "float32", "float32")),
+                     ((1, 16, 4, 1024, 1024, 320, True),
+                      ("float16", "bfloat16", "bfloat16")),
+                     ((1, 8, 2, 512, 512, 128, True),
+                      ("float64", "float64", "float64")))
+# Phase 7f: the wide route through a model, reduced stablelm at hd 320.
+LM_WIDE_HD, LM_WIDE_HD_T = 320, 256
 # Phase 10: training.  (a) minicpm-2b at full width (bf16 weights, AdamW
 # with f32 moments, remat "nothing", cosine lr with 2 warm-up steps),
 # TRAIN_B x TRAIN_T tokens a step from a SelfScheduledLoader over
@@ -837,22 +889,25 @@ def phase_build() -> tuple[str, dict]:
     for source, name, text in found:
         say("build", f"{source} {names.get(name, name)}: ptxas{text}")
     n = len(_build._sources())
-    if n != 7 or "flash_attention_f32_sm90.cu" not in log:
-        raise AssertionError(f"expected seven kernel sources, built {n}")
+    if n != 8 or any(f"flash_attention_{x}.cu" not in log
+                     for x in ("f32_sm90", "wide")):
+        raise AssertionError(f"expected eight kernel sources, built {n}")
     # Tensor-core instructions in the SASS of each instantiation (one per
-    # padded head_dim, 32 .. 256) of each flash kernel: wgmma is HGMMA,
-    # mma.sync HMMA.  Both kernels are built on wgmma, so every
-    # instantiation must hold HGMMA; HMMA is printed only.
-    for source, kernel in (
-            ("flash_attention_sm90.cu", "flash_attention_sm90_kernel"),
+    # padded head_dim, 32 .. 256, and per element type) of each tensor-core
+    # flash kernel: wgmma is HGMMA, mma.sync HMMA.  Both kernels are built
+    # on wgmma, so every instantiation must hold HGMMA; HMMA is printed
+    # only.  (The wide kernel runs on CUDA cores: its registers are above.)
+    widths = [32, 64, 96, 128, 160, 192, 224, 256]
+    for source, kernel, n_types in (
+            ("flash_attention_sm90.cu", "flash_attention_sm90_kernel", 2),
             ("flash_attention_f32_sm90.cu",
-             "flash_attention_f32_sm90_kernel")):
+             "flash_attention_f32_sm90_kernel", 1)):
         counts = {op: sass_counts(_build.library_path(), kernel, op)
                   for op in ("HGMMA", "HMMA")}
         names = demangle(counts["HGMMA"])
         width = {m: int(re.search(r"\((?:int\))?(\d+)", names[m]).group(1))
                  for m in names}
-        if sorted(width.values()) != [32, 64, 96, 128, 160, 192, 224, 256]:
+        if sorted(width.values()) != sorted(widths * n_types):
             raise AssertionError(f"{source}: instantiations "
                                  f"{sorted(width.values())}")
         for mangled in sorted(names, key=width.get):
@@ -2093,25 +2148,99 @@ def profile_screen_tasks(wf, tasks) -> None:
                      "measured"))
 
 
-def flash_bound(B, H, KV, T, S, hd, causal, itemsize, ops_per_s,
+def flash_bound(B, H, KV, T, S, hd, causal, nbytes, ops_per_s,
                 ops_per_pair=None):
     """(ms, "bytes" | "operations"): q, k, v read once and o written once
-    against ``ops_per_pair`` operations (default 4 * hd: 2 hd for the
-    score, 2 hd for the weighted sum) for each (query, key) pair the mask
-    keeps."""
+    (``nbytes`` in all) against ``ops_per_pair`` operations (default
+    4 * hd: 2 hd for the score, 2 hd for the weighted sum) for each
+    (query, key) pair the mask keeps."""
     # Query t keeps keys 0 .. t + S - T, clipped to [0, S].
     pairs = (sum(min(max(t + S - T + 1, 0), S) for t in range(T))
              if causal else T * S)
-    nbytes = itemsize * (2 * B * H * T * hd + 2 * B * KV * S * hd)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = (ops_per_pair or 4 * hd) * pairs * B * H / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_flash() -> dict:
+def flash_route_for(dtypes: tuple, hd: int) -> str:
+    """The route the tentpole's table gives q, k, v of ``dtypes`` at
+    ``hd``, written out apart from flash_attention.route: "wide" above
+    256; else "sm90", "sm90_f16" or "sm90_f32" for one common bf16, f16
+    or f32, and "sm90_f32" for a mix or f64."""
+    import torch
+    if hd > 256:
+        return "wide"
+    one = {torch.bfloat16: "sm90", torch.float16: "sm90_f16",
+           torch.float32: "sm90_f32"}
+    return one.get(dtypes[0], "sm90_f32") if len(set(dtypes)) == 1 \
+        else "sm90_f32"
+
+
+def flash_gate(dtype) -> tuple:
+    """(rtol, atol) of one rounding to the output dtype ``dtype``."""
+    import torch
+    return {torch.bfloat16: (FLASH_BF16_RTOL, FLASH_BF16_ATOL),
+            torch.float16: (FLASH_F16_RTOL, FLASH_F16_ATOL)}.get(
+                dtype, (FLASH_F32_TOL, FLASH_F32_TOL))
+
+
+def sdpa_taken(q, k, v, causal: bool):
+    """(backend name, call) of SDPA as its default dispatcher runs it: on
+    q, k, v with ``enable_gqa`` where a fused backend takes them, else on
+    k and v repeated to H heads (here, outside any timing), which the
+    memory-efficient backend takes where flash declines (f32, head_dims
+    above 256).  The yardstick only: the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
+    kw = {"is_causal": causal, "enable_gqa": True}
+    backend = SDPBackend(torch._fused_sdp_choice(q, k, v, **kw))
+    if backend == SDPBackend.MATH and q.shape[1] != k.shape[1]:
+        k, v = (x.repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+                for x in (k, v))
+        kw = {"is_causal": causal}
+        backend = SDPBackend(torch._fused_sdp_choice(q, k, v, **kw))
+    return (backend.name.lower(),
+            lambda: F.scaled_dot_product_attention(q, k, v, **kw))
+
+
+def sdpa_by_backend(q, k, v, causal: bool, runs: int) -> dict:
+    """{backend name: device ms} of each fused SDPA backend that takes
+    q, k, v (with ``enable_gqa``, else on k and v repeated to H heads),
+    each forced in turn."""
+    import warnings
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    kx, vx = (x.repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+              for x in (k, v))
+    out = {}
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION):
+        for args, kw in (((q, k, v), {"enable_gqa": True}),
+                         ((q, kx, vx), {})):
+            def call(backend=backend, args=args, kw=kw):
+                with sdpa_kernel(backend):
+                    return F.scaled_dot_product_attention(
+                        *args, is_causal=causal, **kw)
+            try:
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    call()
+                    torch.cuda.synchronize()
+            except RuntimeError:
+                continue
+            out[backend.name.lower()] = device_ms(call, runs=runs)
+            break
+    return out
+
+
+def phase_flash(card: str) -> dict:
     """The flash kernels against their plain version at every shape, each
-    through the route its dtype selects (counted), timed beside the plain
-    version and, at T == S, SDPA."""
+    through the route its dtypes and head_dim select (counted), timed
+    beside the plain version and, at T == S, SDPA; each line of numbers
+    ends with the card and its power limit."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as flash_mod
@@ -2120,6 +2249,7 @@ def phase_flash() -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(13)
     both = (torch.bfloat16, torch.float32)
+    f16 = torch.float16
     cases = [(shape, torch.float32) for shape in FLASH_TEST_SHAPES]
     cases.append((FLASH_BF16_SHAPE, torch.bfloat16))
     cases += [((1, 32, 8, T, T, 160, True), dt) for T in FLASH_LM_T
@@ -2128,28 +2258,40 @@ def phase_flash() -> dict:
     cases += [(shape, torch.bfloat16) for shape in FLASH_ARMS_SHAPES]
     cases += [(shape, dt) for shape in FLASH_WIDE_SHAPES + FLASH_PADDED_SHAPES
               + FLASH_GROUPING_SHAPES for dt in both]
+    # f16 at every shape held in bf16 above.
+    cases += [(shape, f16) for shape, dt in list(cases)
+              if dt == torch.bfloat16]
+    cases += [(shape, dt) for shape in FLASH_WIDE_HD_SHAPES
+              for dt in (f16, torch.bfloat16, torch.float32)]
+    cases += [(shape, tuple(getattr(torch, n) for n in names))
+              for shape, names in FLASH_MIXED_CASES]
     res = {"per_shape": {}, "max_abs_err": 0.0}
     for (B, H, KV, T, S, hd, causal), dt in cases:
-        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
-                   for shape in ((B, H, T, hd), (B, KV, S, hd),
-                                 (B, KV, S, hd)))
-        bf16 = dt == torch.bfloat16
-        route = flash_mod.route(dt, hd)
+        dts = dt if isinstance(dt, tuple) else (dt,) * 3
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(d)
+                   for shape, d in zip(((B, H, T, hd), (B, KV, S, hd),
+                                        (B, KV, S, hd)), dts))
+        out_dt = flash_mod.out_dtype(dts[0])
+        route = flash_mod.route(*dts[:1], hd, *dts[1:])
         before = dict(flash_mod.launches_by_route)
         got = flash_mod.flash_attention(q, k, v, causal=causal)
         want = ref.flash_attention_ref(q, k, v, causal=causal)
         torch.cuda.synchronize()
+        label = (str(dts[0])[6:] if len(set(dts)) == 1 else
+                 " ".join(f"{x}-{str(d)[6:]}" for x, d in zip("qkv", dts)))
         name = f"B={B} H={H} KV={KV} T={T} S={S} hd={hd} " \
-               f"{'causal' if causal else 'full'} {str(dt)[6:]}"
+               f"{'causal' if causal else 'full'} {label}"
         routed = {r: flash_mod.launches_by_route[r] - before[r]
                   for r in before}
-        want_route = "sm90" if bf16 else "sm90_f32"
+        want_route = flash_route_for(dts, hd)
         if route != want_route or routed != {r: int(r == route)
                                              for r in before}:
             raise AssertionError(f"flash_attention at {name} went through "
                                  f"{routed}, expected route {want_route}")
-        rtol, atol = ((FLASH_BF16_RTOL, FLASH_BF16_ATOL) if bf16
-                      else (FLASH_F32_TOL, FLASH_F32_TOL))
+        if got.dtype != out_dt or tuple(got.shape) != (B, H, T, hd):
+            raise AssertionError(f"flash_attention at {name}: output "
+                                 f"{got.dtype} {tuple(got.shape)}")
+        rtol, atol = flash_gate(out_dt)
 
         def gate(out):
             """(max |out - plain|, whether every element meets the gate,
@@ -2171,56 +2313,60 @@ def phase_flash() -> dict:
                "plain_ms": device_ms(lambda: ref.flash_attention_ref(
                    q, k, v, causal=causal), runs=runs),
                "library_ms": None}
-        if T == S and bf16:
-            lib = F.scaled_dot_product_attention(q, k, v, is_causal=causal,
-                                                 enable_gqa=True)
+        if T == S:
+            # SDPA as a user gets it, in the dtype the kernel computes in
+            # (the mixes and f64 on their f32 copies).
+            lq, lk, lv = (x.to(flash_mod.kernel_dtype(*dts))
+                          for x in (q, k, v))
+            row["library_backend"], call = sdpa_taken(lq, lk, lv, causal)
+            lib = call()
             (row["library_max_abs_err"], _,
              row["library_outside_gate"]) = gate(lib)
             del lib
-            row["library_ms"] = device_ms(
-                lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=causal, enable_gqa=True), runs=runs)
-        elif T == S:
-            # In f32, SDPA with enable_gqa takes its math path; the
-            # memory-efficient kernel (f32 on the tensor cores, CUTLASS's
-            # OpMultiplyAddFastF32) takes k and v at H heads, repeated
-            # here outside the timed calls.
-            from torch.nn.attention import SDPBackend, sdpa_kernel
-            kx, vx = (x.repeat_interleave(H // KV, dim=1) for x in (k, v))
-            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
-                lib = F.scaled_dot_product_attention(q, kx, vx,
-                                                     is_causal=causal)
-                (row["library_max_abs_err"], _,
-                 row["library_outside_gate"]) = gate(lib)
-                del lib
-                row["library_ms"] = device_ms(
-                    lambda: F.scaled_dot_product_attention(
-                        q, kx, vx, is_causal=causal), runs=runs)
-            del kx, vx
-        if bf16:
+            row["library_ms"] = device_ms(call, runs=runs)
+            del lq, lk, lv, call
+        nbytes = (sum(x.numel() * x.element_size() for x in (q, k, v))
+                  + got.numel() * got.element_size())
+        if route in ("sm90", "sm90_f16"):
             row["bound_ms"], row["bound_by"] = flash_bound(
-                B, H, KV, T, S, hd, causal, q.element_size(),
-                BF16_OPS_PER_S)
+                B, H, KV, T, S, hd, causal, nbytes, TC16_OPS_PER_S)
             # The sm90 kernel's own floor: 2 hd for the score and 4 hd
-            # for P.V run twice (hi and lo) per kept pair, in bf16.
+            # for P.V run twice (hi and lo) per kept pair, in 16 bits.
             floor_ms, _ = flash_bound(
-                B, H, KV, T, S, hd, causal, q.element_size(),
-                BF16_OPS_PER_S, ops_per_pair=6 * hd)
+                B, H, KV, T, S, hd, causal, nbytes, TC16_OPS_PER_S,
+                ops_per_pair=6 * hd)
             floor = f", design floor {floor_ms:.4f} ms"
-        else:
-            # f32-accurate products run fastest on the tensor cores as
-            # split TF32: both products three times, 12 hd per kept pair
-            # at the TF32 rate.
+        elif flash_mod.kernel_dtype(*dts) == torch.float32:
+            # f32-accurate products (f32 inputs, and the mixes and f64
+            # taken as f32) run fastest on the tensor cores as split
+            # TF32: both products three times, 12 hd per kept pair at the
+            # TF32 rate.
             row["bound_ms"], row["bound_by"] = flash_bound(
-                B, H, KV, T, S, hd, causal, q.element_size(),
-                TF32_OPS_PER_S, ops_per_pair=12 * hd)
+                B, H, KV, T, S, hd, causal, nbytes, TF32_OPS_PER_S,
+                ops_per_pair=12 * hd)
             floor = ""
+        else:
+            row["bound_ms"], row["bound_by"] = flash_bound(
+                B, H, KV, T, S, hd, causal, nbytes, TC16_OPS_PER_S)
+            floor = ""
+        if route == "wide" and len(set(dts)) == 1:
+            # The wide kernel's own floor: the score once per output
+            # chunk of at most 256 columns and the weighted sum once, on
+            # CUDA cores in f32.
+            chunks = -(-hd // 256)
+            floor_ms, _ = flash_bound(
+                B, H, KV, T, S, hd, causal, nbytes, F32_OPS_PER_S,
+                ops_per_pair=2 * hd * chunks + 2 * hd)
+            floor = (f", design floor {floor_ms:.4f} ms (CUDA cores, "
+                     f"{chunks} chunks)")
         lib = ("-" if row["library_ms"] is None
                else f"{row['library_ms']:.4f}")
         extra = floor
         if row["library_ms"] is not None:
             extra += (f"; library {row['library_ms'] / row['ms']:.2f}x "
                       f"the kernel's time")
+        if "library_backend" in row:
+            extra += f" (SDPA's {row['library_backend']} backend)"
         if "library_outside_gate" in row:
             extra += (f"; SDPA outside the gate: "
                       f"{row['library_outside_gate']:.4f} of the outputs")
@@ -2228,7 +2374,8 @@ def phase_flash() -> dict:
                      f"kernel {row['ms']:.4f} ms, plain "
                      f"{row['plain_ms']:.4f} ms, library {lib} ms, bound "
                      f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
-                     f"{row['ms'] / row['bound_ms']:.1f}x the bound" + extra)
+                     f"{row['ms'] / row['bound_ms']:.1f}x the bound" + extra
+                     + f" [{card}]")
         res["per_shape"][name] = row
         res["max_abs_err"] = max(res["max_abs_err"], err)
         del q, k, v, got, want
@@ -2236,12 +2383,39 @@ def phase_flash() -> dict:
     # A head_dim that is not a multiple of 8 beside its neighbour: hd 156
     # (zero-padded to 160, the copies timed with the kernel) against hd
     # 160 at stablelm's heads, on each route.
-    for dt in ("bfloat16", "float32"):
+    for dt in ("bfloat16", "float32", "float16"):
         pad, full = (res["per_shape"][
             f"B=1 H=32 KV=8 T=4096 S=4096 hd={hd} causal {dt}"]["ms"]
             for hd in (156, 160))
         say("flash", f"hd 156 / hd 160 at stablelm's heads, {dt}: "
-                     f"{pad:.4f} / {full:.4f} ms = {pad / full:.3f}x")
+                     f"{pad:.4f} / {full:.4f} ms = {pad / full:.3f}x "
+                     f"[{card}]")
+    # SDPA's fused backends one by one at stablelm's heads, in both
+    # 16-bit types: which one the default dispatcher takes decides the
+    # library time above.
+    B, H, KV, T, S, hd, causal = FLASH_SDPA_BACKENDS_SHAPE
+    for dt in (torch.bfloat16, f16):
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
+                   for shape in ((B, H, T, hd), (B, KV, S, hd),
+                                 (B, KV, S, hd)))
+        taken, _ = sdpa_taken(q, k, v, causal)
+        by = sdpa_by_backend(q, k, v, causal, runs=10)
+        say("flash", f"SDPA by backend at B={B} H={H} KV={KV} T={T} "
+                     f"S={S} hd={hd} {str(dt)[6:]}: "
+                     + ", ".join(f"{n} {ms:.4f} ms" for n, ms in by.items())
+                     + f"; the default dispatcher takes {taken} [{card}]")
+        res.setdefault("sdpa_by_backend", {})[str(dt)[6:]] = {
+            "taken": taken, "ms": by}
+        del q, k, v
+        torch.cuda.empty_cache()
+    # f16 beside bf16 on the same tensor-core kernel, shape by shape.
+    ratios = [res["per_shape"][n]["ms"] /
+              res["per_shape"][n[:-len("float16")] + "bfloat16"]["ms"]
+              for n in res["per_shape"] if n.endswith(" float16")
+              and res["per_shape"][n]["route"] == "sm90_f16"]
+    say("flash", f"sm90_f16 / sm90 kernel time over {len(ratios)} shapes: "
+                 f"{min(ratios):.3f} .. {max(ratios):.3f} (median "
+                 f"{statistics.median(ratios):.3f}) [{card}]")
     # The reference's block keywords at stablelm's heads, on each route.
     from repro_torch.kernels import ops
     B, H, KV, T, S, hd, causal = FLASH_KEYWORDS_SHAPE
@@ -3010,8 +3184,8 @@ def phase_lm() -> dict:
               f"GB), first (xla, warm-up) {warm_s:.3f}s; flash launches "
               f"{launches} by route {by_route}; max|flash - xla| / max|xla| "
               f"{rel:.3g} (gate {LM_REL_GATE}); finite {finite}")
-    if launches != cfg.n_layers or by_route != {"sm90": cfg.n_layers,
-                                                "sm90_f32": 0}:
+    if launches != cfg.n_layers or by_route != {
+            r: cfg.n_layers * (r == "sm90") for r in by_route}:
         raise AssertionError(f"flash forward launched the kernel {launches} "
                              f"times ({by_route}), expected "
                              f"{cfg.n_layers}, all on the sm90 route")
@@ -3060,6 +3234,159 @@ def phase_lm() -> dict:
     return {"launches": launches, "launches_by_route": by_route,
             "forward_tokens_per_s": n_tok / flash_s,
             "forward_flash_share": flash_share}
+
+
+def first_nonfinite_superblock(cfg, params, batch: dict) -> dict:
+    """Where a forward stops being finite: the first superblock whose
+    output holds a value that is not finite, its first such (row,
+    token), and the same superblock run by the port on the CPU on the
+    same input and weights, for that row up to that token (causal: those
+    are all the positions it depends on): whether the CPU's value is
+    finite there too.  {"superblock": None} when every superblock's
+    output is finite (then the unembedding is at fault)."""
+    import torch
+    from repro_torch.models import model as M
+    with torch.no_grad():
+        x = M.encode_inputs(cfg, params, batch)
+        for sb in range(cfg.n_superblocks):
+            p = M._index(params["blocks"], sb)
+            y = M.superblock_apply(cfg, p, x, sb)
+            bad = ~torch.isfinite(y).all(dim=-1)
+            if bool(bad.any()):
+                b, t = (int(i) for i in bad.nonzero()[0])
+                cpu = M.superblock_apply(
+                    cfg, M.tree_map(lambda a: a.cpu(), p),
+                    x[b:b + 1, :t + 1].cpu(), sb)
+                return {"superblock": sb, "row": b, "token": t,
+                        "max_abs_input": x.float().abs().max().item(),
+                        "nonfinite_outputs": int(bad.sum()),
+                        "cpu_finite_there": bool(
+                            torch.isfinite(cpu[0, t]).all())}
+            x = y
+    return {"superblock": None}
+
+
+def flash_routes(flash: dict, lm: dict, lm_f16: dict, lm_f32: dict) -> dict:
+    """Row 5's four routes for the final line: each one's source, its
+    timed shape in phase 6 (stablelm's heads at T = S = 4096; the wide
+    route at hd 320, f16) with the numbers measured there, and its
+    launches on the forwards that go through it (phases 7, 7f, 7a and
+    7f's hd-320 model)."""
+    from repro_torch.kernels import _build
+    top = "B=1 H=32 KV=8 T=4096 S=4096 hd=160 causal "
+    spec = {
+        "sm90": ("flash_attention_sm90.cu", top + "bfloat16",
+                 lm["launches_by_route"]["sm90"]),
+        "sm90_f16": ("flash_attention_sm90.cu", top + "float16",
+                     lm_f16["launches_by_route"]["sm90_f16"]),
+        "sm90_f32": ("flash_attention_f32_sm90.cu", top + "float32",
+                     lm_f32["launches_by_route"]["sm90_f32"]),
+        "wide": ("flash_attention_wide.cu",
+                 "B=1 H=16 KV=4 T=1024 S=1024 hd=320 causal float16",
+                 sum(r["launches_by_route"]["wide"]
+                     for r in lm_f16["wide_hd"].values())),
+    }
+    out = {}
+    for route, (src, shape, launches) in spec.items():
+        row = flash["per_shape"][shape]
+        out[route] = {
+            "source": os.path.relpath(_build.SRC_DIR / src, HERE),
+            "shape": shape, "launches": launches,
+            **{k: row.get(k) for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms",
+                                       "library_backend")}}
+    return out
+
+
+def phase_lm_f16(card: str) -> dict:
+    """stablelm-12b with f16 parameters and activations at full width and
+    depth: forward with the flash kernel (the sm90_f16 route, 40
+    launches) and with xla, logits compared (LM_REL_GATE); the flash
+    forward profiled (device time by kind of kernel); prefill +
+    decode_step against forward; BatchedServer, one round.  A forward
+    that is not finite is reported (:func:`first_nonfinite_superblock`)
+    instead of compared, and fails only where the port on the CPU is
+    finite at the same place.  Then reduced stablelm at head_dim
+    LM_WIDE_HD in bf16 and f32: every flash launch on the wide route,
+    flash against xla.  Every line ends with the card and its power
+    limit."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+
+    failures, res = [], {}
+    sfx = f" [{card}]"
+
+    def gate(ok: bool, what: str) -> None:
+        if not ok:
+            failures.append(what)
+            say("lm-f16", f"GATE FAILED: {what}")
+
+    cfg = dataclasses.replace(get_arch(LM_ARCH), param_dtype="float16",
+                              activation_dtype="float16")
+    params, n_params, gb, init_s, init_peak = lm_params_on_card(cfg)
+    say("lm-f16", f"{cfg.name} in f16: {cfg.n_layers} layers, d_model "
+                  f"{cfg.d_model}, {cfg.n_heads} heads (kv {cfg.n_kv_heads},"
+                  f" hd {cfg.head_dim_}): {n_params} parameters, {gb:.2f} GB"
+                  f" on the card, drawn in {init_s:.2f}s (peak "
+                  f"{init_peak:.2f} GB)" + sfx)
+    rng = np.random.default_rng(0)
+    batch = lm_batch(cfg, LM_B, rng)            # phase 7's tokens
+    fwd = lm_forward_pair("lm-f16", cfg, params, batch, True, gate, sfx,
+                          route="sm90_f16", finite_gate=False)
+    res.update(params=n_params, gb=gb, **{k: v for k, v in fwd.items()
+                                           if k != "nonfinite"})
+    if not fwd["finite"]:
+        # A finding, not a setting to change: where it stops being
+        # finite, and whether the port on the CPU does the same there.
+        where = first_nonfinite_superblock(cfg, params, batch)
+        res["nonfinite"] = where
+        say("lm-f16", f"{cfg.name} f16 forward not finite "
+                      f"({fwd['nonfinite']}): first at {where}" + sfx)
+        gate(where["superblock"] is not None
+             and not where["cpu_finite_there"],
+             f"f16 forward not finite on the card where the port on the "
+             f"CPU is: {where}")
+    else:
+        res["profile"] = lm_profiled_forward("lm-f16", cfg, params, batch,
+                                             sfx)
+        head = {k: v[:, :LM_DECODE_T + 1] for k, v in batch.items()}
+        rel_dec, _, _ = decode_vs_forward(cfg, params, head)
+        res["decode_vs_forward"] = rel_dec
+        say("lm-f16", f"prefill({LM_DECODE_T}) + decode_step vs forward("
+                      f"{LM_DECODE_T + 1}): rel {rel_dec:.3g} (gate "
+                      f"{LM_DECODE_GATE})" + sfx)
+        gate(rel_dec < LM_DECODE_GATE,
+             f"f16 decode disagrees with forward: rel {rel_dec}")
+        res["serve"] = serve_and_profile("lm-f16", cfg, params, rng,
+                                         SERVE_REQUESTS, 1, sfx)
+    del params, batch
+    torch.cuda.empty_cache()
+
+    # The wide route through a model: reduced stablelm at hd LM_WIDE_HD.
+    res["wide_hd"] = {}
+    for dt, rel_gate in (("bfloat16", LM_REL_GATE),
+                         ("float32", LM_F32_REL_GATE)):
+        rcfg = dataclasses.replace(get_arch(LM_ARCH, reduced=True),
+                                   head_dim=LM_WIDE_HD, param_dtype=dt,
+                                   activation_dtype=dt)
+        rparams = lm_params_on_card(rcfg)[0]
+        toks = np.random.default_rng(1).integers(
+            0, rcfg.vocab_size, (LM_B, LM_WIDE_HD_T)).astype(np.int32)
+        say("lm-f16", f"{rcfg.name} reduced at hd {rcfg.head_dim_} in {dt}"
+                      f": {rcfg.n_layers} layers, {rcfg.n_heads} heads (kv "
+                      f"{rcfg.n_kv_heads})" + sfx)
+        res["wide_hd"][dt] = lm_forward_pair(
+            "lm-f16", rcfg, rparams,
+            {"tokens": torch.from_numpy(toks).cuda()}, True, gate, sfx,
+            route="wide", rel_gate=rel_gate)
+        del rparams
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"phase 7f: {len(failures)} gate(s) failed: "
+                             + "; ".join(failures))
+    return res
 
 
 def phase_lm_f32() -> dict:
@@ -3151,7 +3478,8 @@ def phase_lm_f32() -> dict:
     say("lm-f32", f"max|flash - xla| / max|xla|: {rel:.3g} (gate "
                   f"{LM_F32_REL_GATE})")
     n = cfg.n_layers
-    if launches != n or by_route != {"sm90": 0, "sm90_f32": n}:
+    if launches != n or by_route != {r: n * (r == "sm90_f32")
+                                     for r in by_route}:
         raise AssertionError(f"f32 flash forward launched the kernel "
                              f"{launches} times ({by_route}), expected {n}, "
                              f"all on the sm90_f32 route")
@@ -3312,20 +3640,23 @@ def lm_batch(cfg, B: int, rng) -> dict:
 
 
 def lm_forward_pair(tag: str, cfg, params, batch: dict, bf16_gates: bool,
-                    gate, suffix: str = "") -> dict:
+                    gate, suffix: str = "", route: str = "sm90",
+                    rel_gate: float = LM_REL_GATE,
+                    finite_gate: bool = True) -> dict:
     """A warm-up forward (xla: cuBLAS and the allocator), then the flash
     forward with the flash counters zeroed just before and read just
     after, then the xla forward, each timed and its peak memory read;
-    ``gate`` holds one sm90 launch per attention layer, the logits'
-    shape and finiteness and, where ``bf16_gates``, flash vs xla within
-    LM_REL_GATE."""
+    ``gate`` holds one launch per attention layer, all on ``route``, the
+    logits' shape and (unless not ``finite_gate``) finiteness and, where
+    ``bf16_gates``, flash vs xla within ``rel_gate``; non-finite logits
+    are counted."""
     import dataclasses
     import torch
     from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.models import model as M
     name = cfg.name
-    B = next(iter(batch.values())).shape[0]
-    n_tok = B * LM_T
+    B, T = next(iter(batch.values())).shape[:2]
+    n_tok = B * T
     n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
     cfg_flash = dataclasses.replace(cfg, attention_impl="flash")
 
@@ -3355,28 +3686,34 @@ def lm_forward_pair(tag: str, cfg, params, batch: dict, bf16_gates: bool,
     # max|xla|: a routing flip moves some rows, a wrong kernel all.
     row_rel = ((lf.float() - lx.float()).abs().amax(dim=-1)
                / (lx.float().abs().max() + 1e-6))
-    rows_out = (row_rel >= LM_REL_GATE).float().mean().item()
+    rows_out = (row_rel >= rel_gate).float().mean().item()
     shape = tuple(lf.shape)
+    nonfinite = {} if finite else {"flash": int((~torch.isfinite(lf)).sum()),
+                                   "xla": int((~torch.isfinite(lx)).sum())}
     del lf, lx, row_rel
-    note = ("gate " + str(LM_REL_GATE) if bf16_gates
+    note = ("gate " + str(rel_gate) if bf16_gates
             else "not gated: bf16 routing/drift")
-    say(tag, f"{name} forward B={B} T={LM_T}: flash {flash_s:.3f}s "
+    say(tag, f"{name} forward B={B} T={T}: flash {flash_s:.3f}s "
              f"({n_tok / flash_s:.1f} tokens/s, peak "
              f"{peak_flash / 1e9:.2f} GB), xla {xla_s:.3f}s "
              f"({n_tok / xla_s:.1f} tokens/s, peak {peak_xla / 1e9:.2f} "
              f"GB), first (xla, warm-up) {warm_s:.3f}s; flash launches "
              f"{launches} by route {by_route}; max|flash - xla| / max|xla| "
-             f"{rel:.3g} ({note}; token rows at or past {LM_REL_GATE}: "
-             f"{rows_out:.5f}); finite {finite}" + suffix)
-    gate(launches == n_attn and by_route == {"sm90": n_attn, "sm90_f32": 0},
+             f"{rel:.3g} ({note}; token rows at or past {rel_gate}: "
+             f"{rows_out:.5f}); finite {finite}"
+             + (f" (non-finite logits {nonfinite})" if nonfinite else "")
+             + suffix)
+    gate(launches == n_attn and by_route == {
+        r: n_attn * (r == route) for r in by_route},
          f"{name}: flash forward launched the kernel {launches} times "
-         f"({by_route}), expected {n_attn}, all on the sm90 route")
-    gate(finite and shape == (B, LM_T, cfg.vocab_size),
+         f"({by_route}), expected {n_attn}, all on the {route} route")
+    gate((finite or not finite_gate) and shape == (B, T, cfg.vocab_size),
          f"{name}: forward logits shape {shape}, finite {finite}")
-    if bf16_gates:
-        gate(rel < LM_REL_GATE, f"{name}: flash and xla logits differ: "
-                                f"rel {rel}")
-    return {"B": B, "launches": launches, "launches_by_route": by_route,
+    if bf16_gates and finite:
+        gate(rel < rel_gate, f"{name}: flash and xla logits differ: "
+                             f"rel {rel}")
+    return {"B": B, "finite": finite, "nonfinite": nonfinite,
+            "launches": launches, "launches_by_route": by_route,
             "flash_xla_rel": rel, "flash_xla_rows_out": rows_out,
             "forward_tokens_per_s": n_tok / flash_s,
             "forward_xla_tokens_per_s": n_tok / xla_s,
@@ -5350,21 +5687,27 @@ def _stage_device_ms(prof, averages=None) -> dict:
 
 def _kernel_split(busy: dict) -> dict:
     """A profile's device ms by kind of kernel: GEMMs (cuBLAS/CUTLASS
-    products, f32 and bf16 apart), the flash kernel, copies (casts of
+    products, f32, bf16 and f16 apart), the flash kernel, copies (casts of
     weights and activations to f32 among them), and the rest.  cuBLASLt's
     ``nvjet`` kernels are Hopper tensor-core GEMMs: with TF32 off (as
     main sets it) they take 16-bit operands, so they count as bf16
-    whatever their names say (f32 products run as ``ffma`` kernels)."""
-    split = dict.fromkeys(("gemm_f32", "gemm_bf16", "flash", "copy",
-                           "other"), 0.0)
+    (``nvjet_tst``) unless their names say f16 (``nvjet_hsh``, as phase
+    7f's read; f32 products run as ``ffma`` kernels)."""
+    split = dict.fromkeys(("gemm_f32", "gemm_bf16", "gemm_f16", "flash",
+                           "copy", "other"), 0.0)
     for k, v in busy.items():
         low = k.lower()
         if "flash_attention" in low:
             split["flash"] += v
         elif any(w in low for w in ("gemm", "xmma", "cutlass", "nvjet")):
-            split["gemm_bf16" if any(w in low for w in (
-                "bf16", "bfloat16", "_hsh", "_bsb", "nvjet")) else
-                "gemm_f32"] += v
+            if any(w in low for w in ("bf16", "bfloat16", "_bsb")):
+                split["gemm_bf16"] += v
+            elif any(w in low for w in ("f16", "fp16", "half", "_hsh")):
+                split["gemm_f16"] += v
+            elif "nvjet" in low:
+                split["gemm_bf16"] += v
+            else:
+                split["gemm_f32"] += v
         elif "copy" in low:
             split["copy"] += v
         else:
@@ -5412,8 +5755,9 @@ def main() -> int:
         "5 screen workflow", phase_screen_workflow)
     dag_launches, dag_shapes, dag_trace = timed("5b dag", phase_dag, barrier)
     timed("5c trace", phase_trace, dag_trace)
-    flash = timed("6 flash", phase_flash)
+    flash = timed("6 flash", phase_flash, card)
     lm = timed("7 lm", phase_lm)
+    lm_f16 = timed("7f lm f16", phase_lm_f16, card)
     lm_f32 = timed("7 lm f32", phase_lm_f32)
     arms = timed("7b arms", phase_lm_arms)
     wide = timed("7c wide", phase_lm_wide, card)
@@ -5527,6 +5871,9 @@ def main() -> int:
         "lm_f32_forward_tokens_per_s": lm_f32["forward_tokens_per_s"],
         "lm_f32_forward_flash_share": lm_f32["forward_flash_share"],
         "launches_lm_f32": lm_f32["launches_by_route"],
+        "launches_lm_f16": lm_f16["launches_by_route"],
+        "lm_f16": lm_f16,
+        "routes": flash_routes(flash, lm, lm_f16, lm_f32),
         "lm_f32": lm_f32,
         "launches_lm_arms": {n: r["launches"] for n, r in arms.items()},
         "lm_arms": arms,

@@ -33,14 +33,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # -fmad=false keeps products out of fused adds, as the plain versions
 # compute them, for the kernels held bitwise to them.  The flash sources
 # are held to a tolerance instead and may fuse (the flag decides little
-# there: their products run on the tensor cores, and their exponent
-# argument is an explicit fmaf).
-FMA_SOURCES = ("flash_attention_sm90.cu", "flash_attention_f32_sm90.cu")
+# there: the tensor-core kernels' products run on the tensor cores, the
+# wide kernel's are explicit fmaf, and so is every exponent argument).
+FMA_SOURCES = ("flash_attention_sm90.cu", "flash_attention_f32_sm90.cu",
+               "flash_attention_wide.cu")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _LL = ctypes.c_longlong
+
+# The flash entries: q, k, v, o, B, H, KV, T, S, hd, hd_out, causal,
+# scale, stream.
+_FLASH = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P)
 
 #: C entry point -> argtypes (every pointer and the stream as c_void_p).
 SIGNATURES = {
@@ -50,10 +55,12 @@ SIGNATURES = {
     "dynamic_rates_f32": (_P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _P),
     "encounter_screen_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _F, _F, _P),
-    "flash_attention_bf16_sm90": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                  _I, _F, _P),
-    "flash_attention_f32_sm90": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                 _I, _F, _P),
+    "flash_attention_bf16_sm90": _FLASH,
+    "flash_attention_f16_sm90": _FLASH,
+    "flash_attention_f32_sm90": _FLASH,
+    "flash_attention_wide_bf16": _FLASH,
+    "flash_attention_wide_f16": _FLASH,
+    "flash_attention_wide_f32": _FLASH,
     "launch_floor": (_I, _I, _I, _P),
 }
 

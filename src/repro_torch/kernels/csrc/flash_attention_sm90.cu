@@ -1,18 +1,20 @@
-// Causal online-softmax GQA attention for bf16 on Hopper's tensor cores:
-// q (B,H,T,hd), k/v (B,KV,S,hd) bf16 -> (B,H,T,hd) bf16, f32 inside.
+// Causal online-softmax GQA attention for bf16 and f16 on Hopper's tensor
+// cores: q (B,H,T,hd), k/v (B,KV,S,hd) in E -> (B,H,T,hd) in E, f32
+// inside, E = __nv_bfloat16 or __half (one template, two entry points).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py (_kernel,
-// lines 44-93; pl.pallas_call at line 124) for bf16 inputs of every
-// head_dim from 1 to 256; csrc/flash_attention_f32_sm90.cu serves f32
-// inputs (as split TF32).  The kernel takes hd % 8 == 0 (TMA's 16-byte
+// lines 44-93; pl.pallas_call at line 124) for bf16 and f16 inputs of
+// every head_dim from 1 to 256; csrc/flash_attention_f32_sm90.cu serves
+// f32 inputs (as split TF32), csrc/flash_attention_wide.cu head_dims above
+// 256.  The kernel takes hd % 8 == 0 (TMA's 16-byte
 // row stride); the wrapper (kernels/flash_attention.py) zero-pads any
 // other head_dim to the next multiple of 8 and passes the true hd's
 // scale, so the extra columns add exact zeros to every score.
 //
 // Bound: operations.  Each (query, key) pair the mask keeps costs 2*hd
 // flops for the score and 2*hd for the weighted sum (4*hd at 989 TFLOP/s
-// in bf16 on an H100 SXM).  This kernel issues 2*hd + 4*hd (see P.V
-// below), so its own floor is 1.5x the function's.
+// in bf16 and in f16 on an H100 SXM).  This kernel issues 2*hd + 4*hd
+// (see P.V below), so its own floor is 1.5x the function's.
 //
 // Design.  One CTA per (b, h, 128-row q tile), all on grid.x with every
 // head's heaviest causal tile first (neighbouring CTAs then share a kv
@@ -45,7 +47,7 @@
 // Tiles strictly above the causal diagonal are never loaded; a consumer
 // whose 64 rows see none of a loaded tile skips its products.
 //
-// Shared memory: tiles are stored in 64-byte-swizzled atoms of 32 bf16
+// Shared memory: tiles are stored in 64-byte-swizzled atoms of 32 2-byte
 // columns (TMA box 32 x rows, CU_TENSOR_MAP_SWIZZLE_64B; wgmma layout
 // B64).  hd = 160 is 5 atoms, so nothing is wasted there (a 128-byte
 // swizzle would need 64-column atoms and 20 % zero padding at 160); other
@@ -55,8 +57,8 @@
 // = 192 KB; at hd 256: q 64 KB + 4 stages x (k + v) 32 KB = 192 KB (three
 // stages of 64 keys would need 256 KB).
 //
-// Numerics.  bf16 x bf16 products are exact in f32, so S from the raw
-// bf16 q and k with f32 accumulation, scaled by hd^-0.5 afterwards,
+// Numerics.  bf16 x bf16 and f16 x f16 products are exact in f32, so S
+// from the raw q and k with f32 accumulation, scaled by hd^-0.5 afterwards,
 // differs from the TPU kernel's (q * scale) k^T by f32 rounding alone.
 // The softmax is the plain version's f32 recurrence: masked scores are
 // -inf, a row that has seen no valid key keeps m = 0 for its
@@ -67,7 +69,14 @@
 // rtol 2^-8, for about a quarter of the outputs at T = 2048): it is split
 // into hi = bf16(p) and lo = bf16(p - hi), and both go through the P.V
 // wgmma into the same f32 accumulator.  The epilogue divides by l and
-// rounds to bf16 once.  Builds with -fmad=true (held to a tolerance).
+// rounds to bf16 once.  In f16 the split is the same on p * 2^15 (exact):
+// f16 has three more significand bits than bf16 but its normal range ends
+// at 2^-14, where lo = p - hi falls for p below about 2^-3 and hi itself
+// below 2^-14; scaled, hi stays normal down to p = 2^-29 and lo down to
+// p = 2^-18, and p * 2^15 <= 2^15 stays below f16's largest value.  The
+// epilogue divides by l * 2^15 (exact) and rounds to f16 once
+// (tests/test_torch_flash_dtypes.py emulates both splits and a single
+// rounding of p).  Builds with -fmad=true (held to a tolerance).
 //
 // Shapes: any T and S (query t sees keys <= t + S - T when causal),
 // H % KV == 0, 16-byte-aligned bases.  q, k, v are 3-D tensor maps
@@ -76,14 +85,56 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
+// What differs between the two element types.
+template <typename E>
+struct Elem;
+
+template <>
+struct Elem<__nv_bfloat16> {
+  using Pair = __nv_bfloat162;
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static constexpr float kPScale = 1.0f;   // p is split as it is
+  static __device__ __forceinline__ Pair pack(float a, float b) {
+    return __floats2bfloat162_rn(a, b);
+  }
+  static __device__ __forceinline__ float2 unpack(Pair h) {
+    return __bfloat1622float2(h);
+  }
+  static __device__ __forceinline__ __nv_bfloat16 one(float a) {
+    return __float2bfloat16_rn(a);
+  }
+};
+
+template <>
+struct Elem<__half> {
+  using Pair = __half2;
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  static constexpr float kPScale = 32768.0f;   // 2^15: see Numerics
+  static __device__ __forceinline__ Pair pack(float a, float b) {
+    return __floats2half2_rn(a, b);
+  }
+  static __device__ __forceinline__ float2 unpack(Pair h) {
+    return __half22float2(h);
+  }
+  static __device__ __forceinline__ __half one(float a) {
+    return __float2half_rn(a);
+  }
+};
+
+template <typename E>
+constexpr bool kIsF16 = std::is_same_v<E, __half>;
+
 constexpr int kBQ = 128;          // query rows per CTA (2 x 64)
-constexpr int kAtom = 32;         // bf16 columns per 64-byte swizzle row
+constexpr int kAtom = 32;         // 2-byte columns per 64-byte swizzle row
 constexpr int kThreads = 288;     // two consumer warpgroups + producer warp
 constexpr int kMaxHeadDim = 256;
 
@@ -176,226 +227,267 @@ __device__ __forceinline__ void fence_regs(float* d) {
 }
 
 // d (m64 x n32, f32) {+}= A (smem, K-major) * B (smem, K-major)^T.
+template <typename E>
 __device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t da, uint64_t db,
                                              int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(scale_d));
+#define FA_WGMMA(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, " \
+      "%16, %17, p, 1, 1, 0, 0;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]) \
+      : "l"(da), "l"(db), "r"(scale_d))
+  if constexpr (kIsF16<E>) FA_WGMMA("f16"); else FA_WGMMA("bf16");
+#undef FA_WGMMA
 }
 
 
 // d (m64 x n64, f32) {+}= A (smem, K-major) * B (smem, K-major)^T.
+template <typename E>
 __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db,
                                              int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
+#define FA_WGMMA(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, " \
+      "%32, %33, p, 1, 1, 0, 0;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+      : "l"(da), "l"(db), "r"(scale_d))
+  if constexpr (kIsF16<E>) FA_WGMMA("f16"); else FA_WGMMA("bf16");
+#undef FA_WGMMA
 }
 
-template <int N>
+template <typename E, int N>
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
                                          int scale_d) {
-  if constexpr (N == 32) wgmma_ss_n32(d, da, db, scale_d);
-  else wgmma_ss_n64(d, da, db, scale_d);
+  if constexpr (N == 32) wgmma_ss_n32<E>(d, da, db, scale_d);
+  else wgmma_ss_n64<E>(d, da, db, scale_d);
 }
 
-// d (m64 x n32, f32) += A (registers, bf16 pairs) * B (smem, MN-major).
+// d (m64 x n32, f32) += A (registers, pairs of E) * B (smem, MN-major).
+template <typename E>
 __device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a,
                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+#define FA_WGMMA(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, " \
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+  if constexpr (kIsF16<E>) FA_WGMMA("f16"); else FA_WGMMA("bf16");
+#undef FA_WGMMA
 }
 
-// d (m64 x n64, f32) += A (registers, bf16 pairs) * B (smem, MN-major).
+// d (m64 x n64, f32) += A (registers, pairs of E) * B (smem, MN-major).
+template <typename E>
 __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+#define FA_WGMMA(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, " \
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+  if constexpr (kIsF16<E>) FA_WGMMA("f16"); else FA_WGMMA("bf16");
+#undef FA_WGMMA
 }
 
-// d (m64 x n96, f32) += A (registers, bf16 pairs) * B (smem, MN-major).
+// d (m64 x n96, f32) += A (registers, pairs of E) * B (smem, MN-major).
+template <typename E>
 __device__ __forceinline__ void wgmma_rs_n96(float* d, const uint32_t* a,
                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
-      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+#define FA_WGMMA(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, " \
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+  if constexpr (kIsF16<E>) FA_WGMMA("f16"); else FA_WGMMA("bf16");
+#undef FA_WGMMA
 }
 
-// d (m64 x n128, f32) += A (registers, bf16 pairs) * B (smem, MN-major).
+// d (m64 x n128, f32) += A (registers, pairs of E) * B (smem, MN-major).
+template <typename E>
 __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+#define FA_WGMMA(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, " \
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+  if constexpr (kIsF16<E>) FA_WGMMA("f16"); else FA_WGMMA("bf16");
+#undef FA_WGMMA
 }
 
-// d (m64 x n160, f32) += A (registers, bf16 pairs) * B (smem, MN-major).
+// d (m64 x n160, f32) += A (registers, pairs of E) * B (smem, MN-major).
+template <typename E>
 __device__ __forceinline__ void wgmma_rs_n160(float* d, const uint32_t* a,
                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, "
-      "{%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+#define FA_WGMMA(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, " \
+      "{%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), \
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), \
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+  if constexpr (kIsF16<E>) FA_WGMMA("f16"); else FA_WGMMA("bf16");
+#undef FA_WGMMA
 }
 
-// d (m64 x n192, f32) += A (registers, bf16 pairs) * B (smem, MN-major).
+// d (m64 x n192, f32) += A (registers, pairs of E) * B (smem, MN-major).
+template <typename E>
 __device__ __forceinline__ void wgmma_rs_n192(float* d, const uint32_t* a,
                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
-      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+#define FA_WGMMA(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, " \
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), \
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), \
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), \
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), \
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+  if constexpr (kIsF16<E>) FA_WGMMA("f16"); else FA_WGMMA("bf16");
+#undef FA_WGMMA
 }
 
-// d (m64 x n224, f32) += A (registers, bf16 pairs) * B (smem, MN-major).
+// d (m64 x n224, f32) += A (registers, pairs of E) * B (smem, MN-major).
+template <typename E>
 __device__ __forceinline__ void wgmma_rs_n224(float* d, const uint32_t* a,
                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %117, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n224k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111}, "
-      "{%112, %113, %114, %115}, %116, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+#define FA_WGMMA(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %117, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n224k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111}, " \
+      "{%112, %113, %114, %115}, %116, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), \
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), \
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), \
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), \
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), \
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), \
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+  if constexpr (kIsF16<E>) FA_WGMMA("f16"); else FA_WGMMA("bf16");
+#undef FA_WGMMA
 }
 
-// d (m64 x n256, f32) += A (registers, bf16 pairs) * B (smem, MN-major).
+// d (m64 x n256, f32) += A (registers, pairs of E) * B (smem, MN-major).
+template <typename E>
 __device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a,
                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+#define FA_WGMMA(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, " \
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), \
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), \
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), \
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), \
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), \
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), \
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), \
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), \
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+  if constexpr (kIsF16<E>) FA_WGMMA("f16"); else FA_WGMMA("bf16");
+#undef FA_WGMMA
 }
 
-template <int N>
+template <typename E, int N>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
                                          uint64_t db) {
-  if constexpr (N == 32) wgmma_rs_n32(d, a, db);
-  else if constexpr (N == 64) wgmma_rs_n64(d, a, db);
-  else if constexpr (N == 96) wgmma_rs_n96(d, a, db);
-  else if constexpr (N == 128) wgmma_rs_n128(d, a, db);
-  else if constexpr (N == 160) wgmma_rs_n160(d, a, db);
-  else if constexpr (N == 192) wgmma_rs_n192(d, a, db);
-  else if constexpr (N == 224) wgmma_rs_n224(d, a, db);
-  else wgmma_rs_n256(d, a, db);
+  if constexpr (N == 32) wgmma_rs_n32<E>(d, a, db);
+  else if constexpr (N == 64) wgmma_rs_n64<E>(d, a, db);
+  else if constexpr (N == 96) wgmma_rs_n96<E>(d, a, db);
+  else if constexpr (N == 128) wgmma_rs_n128<E>(d, a, db);
+  else if constexpr (N == 160) wgmma_rs_n160<E>(d, a, db);
+  else if constexpr (N == 192) wgmma_rs_n192<E>(d, a, db);
+  else if constexpr (N == 224) wgmma_rs_n224<E>(d, a, db);
+  else wgmma_rs_n256<E>(d, a, db);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo_col, float hi_col) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo_col, hi_col);
+template <typename E>
+__device__ __forceinline__ uint32_t pack2(float lo_col, float hi_col) {
+  typename Elem<E>::Pair h = Elem<E>::pack(lo_col, hi_col);
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
 // kHdp: head_dim rounded up to a multiple of kAtom (32 .. 256).
-template <int kHdp>
+template <typename E, int kHdp>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
                             const __grid_constant__ CUtensorMap k_map,
                             const __grid_constant__ CUtensorMap v_map,
-                            __nv_bfloat16* __restrict__ o, int H, int KV,
+                            E* __restrict__ o, int H, int KV,
                             int T, int S, int hd_out, int BH, int causal,
                             float scale) {
   constexpr int kBK = key_tile(kHdp);
@@ -501,10 +593,11 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
         for (int kk = 0; kk < kHdp / 16; ++kk) {
           const uint32_t col = (kk & 1) * 32;   // bytes into the atom row
-          wgmma_ss<kBK>(sc,
-                       smem_desc(q_wg + (kk >> 1) * kQChunk + col, 16, 512),
-                       smem_desc(k_tile + (kk >> 1) * kKChunk + col, 16, 512),
-                       kk > 0);
+          wgmma_ss<E, kBK>(sc,
+                          smem_desc(q_wg + (kk >> 1) * kQChunk + col, 16, 512),
+                          smem_desc(k_tile + (kk >> 1) * kKChunk + col, 16,
+                                    512),
+                          kk > 0);
         }
         wgmma_commit();
         fence_regs<kBK / 2>(sc);
@@ -562,19 +655,20 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
           acc[4 * j + 3] *= corr[1];
         }
         // P as the A operand (registers) of m64nNk16: step kk takes
-        // d[8 kk .. 8 kk + 7] as four bf16 pairs.  hi = bf16(p), lo =
-        // bf16(p - hi): hi + lo carries p to about 2^-17.
+        // d[8 kk .. 8 kk + 7] as four pairs.  hi = E(p'), lo = E(p' - hi)
+        // for p' = p * kPScale: hi + lo carries p to about 2^-17 in bf16
+        // and 2^-22 in f16.
         uint32_t hi[kBK / 16][4], lo[kBK / 16][4];
 #pragma unroll
         for (int kk = 0; kk < kBK / 16; ++kk) {
 #pragma unroll
           for (int x = 0; x < 4; ++x) {
-            const float p0 = sc[8 * kk + 2 * x];
-            const float p1 = sc[8 * kk + 2 * x + 1];
-            const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
-            const float2 hf = __bfloat1622float2(h);
+            const float p0 = sc[8 * kk + 2 * x] * Elem<E>::kPScale;
+            const float p1 = sc[8 * kk + 2 * x + 1] * Elem<E>::kPScale;
+            const typename Elem<E>::Pair h = Elem<E>::pack(p0, p1);
+            const float2 hf = Elem<E>::unpack(h);
             hi[kk][x] = *reinterpret_cast<const uint32_t*>(&h);
-            lo[kk][x] = pack_bf16(p0 - hf.x, p1 - hf.y);
+            lo[kk][x] = pack2<E>(p0 - hf.x, p1 - hf.y);
           }
         }
         // O += P v, for hi and then lo.
@@ -584,12 +678,12 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
         fence_regs<kHdp / 2>(acc);
 #pragma unroll
         for (int kk = 0; kk < kBK / 16; ++kk)
-          wgmma_rs<kHdp>(acc, hi[kk],
-                         smem_desc(v_tile + kk * 16 * kAtom * 2, kKChunk, 512));
+          wgmma_rs<E, kHdp>(acc, hi[kk],
+                            smem_desc(v_tile + kk * 16 * kAtom * 2, kKChunk, 512));
 #pragma unroll
         for (int kk = 0; kk < kBK / 16; ++kk)
-          wgmma_rs<kHdp>(acc, lo[kk],
-                         smem_desc(v_tile + kk * 16 * kAtom * 2, kKChunk, 512));
+          wgmma_rs<E, kHdp>(acc, lo[kk],
+                            smem_desc(v_tile + kk * 16 * kAtom * 2, kKChunk, 512));
         wgmma_commit();
         fence_regs<kHdp / 2>(acc);
         wgmma_wait_all();
@@ -602,7 +696,8 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
       if (lane == 0) mbar_arrive(empty + 8 * s);
     }
 
-    // Epilogue: the row sum over its 4 lanes, acc / l, one bf16 rounding.
+    // Epilogue: the row sum over its 4 lanes, acc / (l * kPScale), one
+    // rounding to E.
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -612,21 +707,21 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     for (int r = 0; r < 2; ++r) {
       const int t = row0 + 8 * r;
       if (t >= T) continue;
-      __nv_bfloat16* out =
-          o + (static_cast<long long>(bh) * T + t) * hd_out;
+      E* out = o + (static_cast<long long>(bh) * T + t) * hd_out;
       const bool any = l[r] != 0.0f;      // a NaN row stays NaN
+      const float den = l[r] * Elem<E>::kPScale;   // exact
 #pragma unroll
       for (int j = 0; j < kHdp / 8; ++j) {
         const int c = 8 * j + col0;
         if (c < hd_out) {
-          const float a0 = any ? acc[4 * j + 2 * r] / l[r] : 0.0f;
-          const float a1 = any ? acc[4 * j + 2 * r + 1] / l[r] : 0.0f;
+          const float a0 = any ? acc[4 * j + 2 * r] / den : 0.0f;
+          const float a1 = any ? acc[4 * j + 2 * r + 1] / den : 0.0f;
           if (hd_out % 2 == 0) {          // c + 1 < hd_out, 4-byte aligned
-            *reinterpret_cast<__nv_bfloat162*>(out + c) =
-                __floats2bfloat162_rn(a0, a1);
+            *reinterpret_cast<typename Elem<E>::Pair*>(out + c) =
+                Elem<E>::pack(a0, a1);
           } else {
-            out[c] = __float2bfloat16_rn(a0);
-            if (c + 1 < hd_out) out[c + 1] = __float2bfloat16_rn(a1);
+            out[c] = Elem<E>::one(a0);
+            if (c + 1 < hd_out) out[c + 1] = Elem<E>::one(a1);
           }
         }
       }
@@ -659,9 +754,10 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// (hd, rows, heads) bf16, row stride hd; boxes of kAtom x box_rows x 1.
-bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int hd,
-              int rows, int heads, int box_rows) {
+// (hd, rows, heads) of 2-byte `type`, row stride hd; boxes of kAtom x
+// box_rows x 1.
+bool make_map(EncodeTiled encode, CUtensorMap* map, CUtensorMapDataType type,
+              const void* ptr, int hd, int rows, int heads, int box_rows) {
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(hd),
                               static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(heads)};
@@ -669,16 +765,16 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int hd,
                                  static_cast<cuuint64_t>(hd) * rows * 2};
   const cuuint32_t box[3] = {kAtom, static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+  return encode(map, type, 3,
                 const_cast<void*>(ptr), dims, strides, box, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int kHdp>
+template <typename E, int kHdp>
 int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
-           __nv_bfloat16* o, int B, int H, int KV, int T, int S,
+           E* o, int B, int H, int KV, int T, int S,
            int hd_out, int causal, float scale, cudaStream_t stream) {
   const long long q_tiles = (T + kBQ - 1) / kBQ;
   const long long blocks = q_tiles * B * H;
@@ -690,7 +786,7 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
                       2 * kStages * static_cast<size_t>(key_tile(kHdp)) *
                           kHdp * 2 +
                       8 * (1 + 3 * kStages);
-  auto kernel = flash_attention_sm90_kernel<kHdp>;
+  auto kernel = flash_attention_sm90_kernel<E, kHdp>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -700,16 +796,13 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
 // q, k, v have rows of hd (a multiple of 8, padded with zero columns
 // where the head_dim is not); o has rows of hd_out <= hd, the head_dim,
 // and gets the first hd_out columns.
-extern "C" int flash_attention_bf16_sm90(const void* q, const void* k,
-                                         const void* v, void* o, int B, int H,
-                                         int KV, int T, int S, int hd,
-                                         int hd_out, int causal, float scale,
-                                         void* stream) {
+template <typename E>
+int run(const void* q, const void* k, const void* v, void* o, int B, int H,
+        int KV, int T, int S, int hd, int hd_out, int causal, float scale,
+        void* stream) {
   if (hd < 8 || hd > kMaxHeadDim || hd % 8 != 0 || hd_out < 1 ||
       hd_out > hd || KV < 1 || H % KV != 0 ||
       ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
@@ -726,21 +819,42 @@ extern "C" int flash_attention_bf16_sm90(const void* q, const void* k,
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const int hdp = (hd + kAtom - 1) / kAtom * kAtom;
+  const CUtensorMapDataType type = Elem<E>::kMap;
   CUtensorMap qm, km, vm;
-  if (!make_map(encode, &qm, q, hd, T, B * H, kBQ) ||
-      !make_map(encode, &km, k, hd, S, B * KV, key_tile(hdp)) ||
-      !make_map(encode, &vm, v, hd, S, B * KV, key_tile(hdp))) {
+  if (!make_map(encode, &qm, type, q, hd, T, B * H, kBQ) ||
+      !make_map(encode, &km, type, k, hd, S, B * KV, key_tile(hdp)) ||
+      !make_map(encode, &vm, type, v, hd, S, B * KV, key_tile(hdp))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto* out = static_cast<__nv_bfloat16*>(o);
+  auto* out = static_cast<E*>(o);
   switch (hdp) {
-    case 32: return launch<32>(qm, km, vm, out, B, H, KV, T, S, hd_out, causal, scale, st);
-    case 64: return launch<64>(qm, km, vm, out, B, H, KV, T, S, hd_out, causal, scale, st);
-    case 96: return launch<96>(qm, km, vm, out, B, H, KV, T, S, hd_out, causal, scale, st);
-    case 128: return launch<128>(qm, km, vm, out, B, H, KV, T, S, hd_out, causal, scale, st);
-    case 160: return launch<160>(qm, km, vm, out, B, H, KV, T, S, hd_out, causal, scale, st);
-    case 192: return launch<192>(qm, km, vm, out, B, H, KV, T, S, hd_out, causal, scale, st);
-    case 224: return launch<224>(qm, km, vm, out, B, H, KV, T, S, hd_out, causal, scale, st);
-    default: return launch<256>(qm, km, vm, out, B, H, KV, T, S, hd_out, causal, scale, st);
+    case 32: return launch<E, 32>(qm, km, vm, out, B, H, KV, T, S, hd_out, causal, scale, st);
+    case 64: return launch<E, 64>(qm, km, vm, out, B, H, KV, T, S, hd_out, causal, scale, st);
+    case 96: return launch<E, 96>(qm, km, vm, out, B, H, KV, T, S, hd_out, causal, scale, st);
+    case 128: return launch<E, 128>(qm, km, vm, out, B, H, KV, T, S, hd_out, causal, scale, st);
+    case 160: return launch<E, 160>(qm, km, vm, out, B, H, KV, T, S, hd_out, causal, scale, st);
+    case 192: return launch<E, 192>(qm, km, vm, out, B, H, KV, T, S, hd_out, causal, scale, st);
+    case 224: return launch<E, 224>(qm, km, vm, out, B, H, KV, T, S, hd_out, causal, scale, st);
+    default: return launch<E, 256>(qm, km, vm, out, B, H, KV, T, S, hd_out, causal, scale, st);
   }
+}
+
+}  // namespace
+
+extern "C" int flash_attention_bf16_sm90(const void* q, const void* k,
+                                         const void* v, void* o, int B, int H,
+                                         int KV, int T, int S, int hd,
+                                         int hd_out, int causal, float scale,
+                                         void* stream) {
+  return run<__nv_bfloat16>(q, k, v, o, B, H, KV, T, S, hd, hd_out, causal,
+                            scale, stream);
+}
+
+extern "C" int flash_attention_f16_sm90(const void* q, const void* k,
+                                        const void* v, void* o, int B, int H,
+                                        int KV, int T, int S, int hd,
+                                        int hd_out, int causal, float scale,
+                                        void* stream) {
+  return run<__half>(q, k, v, o, B, H, KV, T, S, hd, hd_out, causal, scale,
+                     stream);
 }

@@ -22,7 +22,7 @@ from repro_torch.kernels import ref, segment_pipeline
 from repro_torch.kernels.agl_lookup import agl_lookup as _agl_kernel
 from repro_torch.kernels.dynamic_rates import dynamic_rates as _rates_kernel
 from repro_torch.kernels.flash_attention import (
-    flash_attention as _flash_kernel)
+    flash_attention as _flash_kernel, out_dtype as _flash_out_dtype)
 from repro_torch.kernels.track_interp import track_interp as _interp_kernel
 
 Backend = Literal["kernel", "ref"]
@@ -195,8 +195,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     backend: Backend = "kernel", block_q: int = 128,
                     block_k: int = 128) -> torch.Tensor:
     """Blocked online-softmax attention (GQA): q (B,H,T,hd), k/v
-    (B,KV,S,hd) -> (B,H,T,hd) in q's dtype, query t attending keys
-    <= t + (S - T) when ``causal``.  Views (the attention layer hands
+    (B,KV,S,hd) -> (B,H,T,hd) in q's dtype (f32 for an f64 q), query t
+    attending keys <= t + (S - T) when ``causal``.  Any float dtypes, mixed
+    or not, and any head_dim, as the reference takes them (the route rule
+    is flash_attention.route).  Views (the attention layer hands
     over transposed ones) are made contiguous here; the kernel takes any
     T and S, so nothing is padded.  See ref.flash_attention_ref.
 
@@ -225,5 +227,6 @@ def flash_attention(q, k, v, *, causal: bool = True,
     _check_block("block_k", block_k)
     q, k, v = (torch.as_tensor(x).contiguous() for x in (q, k, v))
     if backend == "ref":
-        return ref.flash_attention_ref(q, k, v, causal=causal).to(q.dtype)
+        return ref.flash_attention_ref(q, k, v, causal=causal).to(
+            _flash_out_dtype(q.dtype))
     return _flash_kernel(q, k, v, causal=causal)

@@ -891,7 +891,7 @@ def test_flash_attention_sm90_route(dev, hd, T, S, causal):
     got = flash_mod.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert flash_mod.launches_by_route == {
-        "sm90": before["sm90"] + 1, "sm90_f32": before["sm90_f32"]}
+        r: n + (r == "sm90") for r, n in before.items()}
     assert got.dtype == torch.bfloat16
     want = ref.flash_attention_ref(q, k, v, causal=causal)
     torch.testing.assert_close(got.float(), want, rtol=2 ** -8, atol=1e-5)
@@ -922,7 +922,7 @@ def test_flash_attention_sm90_f32_route(dev, hd, T, S, causal):
     got = flash_mod.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert flash_mod.launches_by_route == {
-        "sm90": before["sm90"], "sm90_f32": before["sm90_f32"] + 1}
+        r: n + (r == "sm90_f32") for r, n in before.items()}
     assert got.dtype == torch.float32
     want = ref.flash_attention_ref(q, k, v, causal=causal)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
@@ -955,14 +955,124 @@ def test_flash_attention_padded_launch_leaves_inputs_unmodified(dev, dtype,
                                rtol=rtol, atol=atol)
 
 
-def test_flash_attention_refuses_head_dims_past_256(dev):
-    """Above 256 the card refuses, naming the limit, before any launch."""
+# One rounding of each output dtype: (rtol, atol).
+FLASH_GATES = {torch.bfloat16: (2 ** -8, 1e-5), torch.float16: (2 ** -11, 1e-5),
+               torch.float32: (2e-5, 2e-5)}
+
+
+def _one_launch_on(flash_mod, route, call):
+    """``call()``'s output, with exactly one launch counted, on ``route``."""
+    before = dict(flash_mod.launches_by_route)
+    out = call()
+    torch.cuda.synchronize()
+    assert flash_mod.launches_by_route == {
+        r: n + (r == route) for r, n in before.items()}
+    return out
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("T,S", [(200, 200), (130, 333), (300, 111)],
+                         ids=["T=S", "T<S", "T>S"])
+@pytest.mark.parametrize("hd", SM90_HEAD_DIMS)
+def test_flash_attention_sm90_f16_route(dev, hd, T, S, causal):
+    """f16 goes through the sm90 kernel's f16 instantiation at every
+    head_dim the bf16 route is held at, T = S, T < S and T > S (rows with
+    no key exactly 0), causal and full; each output within one f16
+    rounding (rtol 2^-11, atol 1e-5) of the plain f32 output."""
     from repro_torch.kernels import flash_attention as flash_mod
-    q, k, v = _qkv(dev, 1, 2, 1, 16, 16, 320, seed=1)
-    before = flash_mod.launches
-    with pytest.raises(ValueError, match=r"1\.\.256"):
-        flash_mod.flash_attention(q, k, v)
-    assert flash_mod.launches == before
+    q, k, v = _qkv(dev, 2, 8, 2, T, S, hd, seed=hd + T + S,
+                   dtype=torch.float16)
+    got = _one_launch_on(flash_mod, "sm90_f16",
+                         lambda: flash_mod.flash_attention(q, k, v,
+                                                           causal=causal))
+    assert got.dtype == torch.float16
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want, rtol=2 ** -11, atol=1e-5)
+    if causal and T > S:
+        assert not got[:, :, :T - S].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16,
+                                   torch.float32],
+                         ids=["f16", "bf16", "f32"])
+@pytest.mark.parametrize("T,S,causal", [(200, 200, True), (130, 333, True),
+                                        (300, 111, True), (96, 160, False)],
+                         ids=["T=S", "T<S", "T>S", "full"])
+@pytest.mark.parametrize("hd", [257, 320, 576, 1024])
+def test_flash_attention_wide_route(dev, hd, T, S, causal, dtype):
+    """Above head_dim 256 every dtype goes through the wide kernel: one
+    launch on the "wide" route, the output in the input's dtype within
+    one rounding of it (2e-5 in f32) of the plain version, rows with no
+    key exactly 0; 257 is not a multiple of 8, 576 and 1024 take three
+    and four output chunks."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    q, k, v = _qkv(dev, 2, 8, 2, T, S, hd, seed=hd + T + S, dtype=dtype)
+    got = _one_launch_on(flash_mod, "wide",
+                         lambda: flash_mod.flash_attention(q, k, v,
+                                                           causal=causal))
+    assert got.dtype == dtype and got.shape == (2, 8, T, hd)
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    rtol, atol = FLASH_GATES[dtype]
+    torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
+    if causal and T > S:
+        assert not got[:, :, :T - S].any()
+
+
+def test_flash_attention_wide_grid_past_65535_blocks(dev):
+    # 64-row q tiles x B * H x 2 output chunks = 1 * 300 * 120 * 2 = 72000
+    # CTAs on grid.x.
+    from repro_torch.kernels import flash_attention as flash_mod
+    q, k, v = _qkv(dev, 300, 120, 4, 32, 32, 257, seed=5,
+                   dtype=torch.float16)
+    got = _one_launch_on(flash_mod, "wide",
+                         lambda: flash_mod.flash_attention(q, k, v))
+    torch.testing.assert_close(got.float(), ref.flash_attention_ref(q, k, v),
+                               rtol=2 ** -11, atol=1e-5)
+
+
+@pytest.mark.parametrize("names,hd,route", [
+    (("bfloat16", "float32", "float32"), 160, "sm90_f32"),
+    (("float16", "bfloat16", "bfloat16"), 160, "sm90_f32"),
+    (("float32", "float16", "bfloat16"), 100, "sm90_f32"),
+    (("bfloat16", "float16", "float16"), 320, "wide"),
+    (("float64", "float64", "float64"), 128, "sm90_f32"),
+    (("float64", "float32", "float32"), 13, "sm90_f32"),
+    (("float64", "float64", "float64"), 320, "wide"),
+], ids=lambda x: "-".join(x) if isinstance(x, tuple) else str(x))
+def test_flash_attention_takes_mixed_dtypes_and_f64(dev, names, hd, route):
+    """q, k and v not all one of f16, bf16 and f32 are taken in f32 (each
+    widened exactly, f64 narrowed): one launch on the f32 route for the
+    head_dim, the output in q's dtype (f32 for f64) within one rounding
+    of it of the plain version, and the caller's tensors untouched."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    dts = [getattr(torch, n) for n in names]
+    q, k, v = (x.to(d) for x, d in zip(
+        _qkv(dev, 1, 8, 2, 200, 300, hd, seed=hd), dts))
+    kept = [x.clone() for x in (q, k, v)]
+    got = _one_launch_on(flash_mod, route,
+                         lambda: flash_mod.flash_attention(q, k, v))
+    out = torch.float32 if dts[0] == torch.float64 else dts[0]
+    assert got.dtype == out and got.shape == (1, 8, 200, hd)
+    for x, y in zip((q, k, v), kept):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    rtol, atol = FLASH_GATES[out]
+    torch.testing.assert_close(got.float(), ref.flash_attention_ref(q, k, v),
+                               rtol=rtol, atol=atol)
+
+
+def test_flash_attention_counts_each_route(dev):
+    """One call on each of the four routes: each counter moves by one,
+    and ``launches`` by four."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    before, total = dict(flash_mod.launches_by_route), flash_mod.launches
+    for dtype, hd in ((torch.bfloat16, 64), (torch.float16, 64),
+                      (torch.float32, 64), (torch.float16, 300)):
+        flash_mod.flash_attention(*_qkv(dev, 1, 4, 2, 64, 64, hd, seed=2,
+                                        dtype=dtype))
+    torch.cuda.synchronize()
+    assert flash_mod.launches == total + 4
+    assert flash_mod.launches_by_route == {r: n + 1
+                                           for r, n in before.items()}
 
 
 def test_flash_attention_sm90_f32_takes_strided_views(dev):
@@ -997,7 +1107,9 @@ def test_flash_attention_sm90_f32_copies_unaligned_bases(dev):
 
 @pytest.mark.parametrize("dtype,hd,route", [
     (torch.float32, 160, "sm90_f32"), (torch.float32, 100, "sm90_f32"),
-    (torch.bfloat16, 160, "sm90"), (torch.bfloat16, 100, "sm90")])
+    (torch.bfloat16, 160, "sm90"), (torch.bfloat16, 100, "sm90"),
+    (torch.float16, 160, "sm90_f16"), (torch.float16, 100, "sm90_f16"),
+    (torch.float32, 320, "wide"), (torch.float16, 257, "wide")])
 def test_flash_attention_keeps_a_nan_row_nan(dev, dtype, hd, route):
     """A NaN in q makes its row NaN, as in the plain version (each kernel
     once wrote such a row as 0: its l is NaN, and only l = 0 means no
@@ -1015,7 +1127,7 @@ def test_flash_attention_keeps_a_nan_row_nan(dev, dtype, hd, route):
     keep = torch.ones(200, dtype=torch.bool, device=dev)
     keep[:50] = False
     got[0, 1, 120] = want[0, 1, 120] = 0.0
-    rtol, atol = (2e-5, 2e-5) if dtype == torch.float32 else (2 ** -8, 1e-5)
+    rtol, atol = FLASH_GATES[dtype]
     torch.testing.assert_close(got[:, :, keep], want[:, :, keep], rtol=rtol,
                                atol=atol)
 

@@ -147,14 +147,14 @@ def test_route_rule(dtype, hd, want):
     assert flash_mod.route(dtype, hd) == want
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16])
 @pytest.mark.parametrize("hd", [257, 512])
-def test_route_refuses_head_dims_past_256(dtype, hd):
-    """The card refuses a head_dim above 256, naming the limit; the plain
-    version, and so a CPU tensor, takes any head_dim, as the reference
-    does."""
-    with pytest.raises(ValueError, match=r"1\.\.256"):
-        flash_mod.route(dtype, hd)
+def test_route_takes_head_dims_past_256(dtype, hd):
+    """A head_dim above 256 goes to the wide kernel in every dtype the
+    card takes, as the reference's kernel takes any head_dim; the plain
+    version, and so a CPU tensor, takes it too."""
+    assert flash_mod.route(dtype, hd) == "wide"
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 1, 8, 8, hd, hd))
     got = flash_mod.flash_attention(q, k, v)
     assert got.shape == (1, 2, 8, hd)
