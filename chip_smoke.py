@@ -8,18 +8,19 @@ and the CUDA toolkit:
 
 Phases, each printed as it runs:
 
-1. build   — compile ``src/repro_torch/kernels/csrc/*.cu`` (eight
-             sources: the five kernels, flash attention having two
-             tensor-core sources, bf16/f16 and f32, and a CUDA-core one
-             for head_dims above 256, and an empty kernel
+1. build   — compile ``src/repro_torch/kernels/csrc/*.cu`` (nine
+             sources: the five kernels, flash attention having four
+             tensor-core sources, bf16/f16 and f32 up to head_dim 256
+             and bf16/f16 and f32 above it, and an empty kernel
              that times the launch floor; one nvcc each, all started
              together) for sm_90a; print the build time, ptxas'
              registers, spills and shared memory per kernel, the count
              of tensor-core instructions (HGMMA for wgmma, HMMA for
              mma.sync) in the SASS of each instantiation (padded
-             head_dim 32 .. 256, and in bf16 and f16) of each tensor-core
-             flash kernel (``cuobjdump -sass``; an instantiation without
-             HGMMA fails), the SASS
+             head_dim 32 .. 256, or output chunk width 160 .. 256 for the
+             wide kernels, and in bf16 and f16) of each flash kernel
+             (``cuobjdump -sass``; an instantiation without HGMMA
+             fails), the SASS
              instructions per pair-sample in the inner loop of each
              encounter-screen kernel (its design floor's count), and the
              card's name and power limit.
@@ -128,9 +129,13 @@ Phases, each printed as it runs:
              inputs the other routes take: f16 at every shape above
              held in bf16 (route "sm90_f16", within one f16 rounding:
              rtol 2^-11, atol 1e-5); head_dims 257, 288, 320, 384, 512,
-             576 and 1024 in f16, bf16 and f32 (route "wide"; causal
-             with T != S, GQA and MQA, a full one, and 257 not a
-             multiple of 8), each within its dtype's gate; two mixes of
+             576 and 1024 in f16, bf16 and f32 (route "wide", the
+             tensor-core kernels of flash_attention_wide.cu and
+             flash_attention_wide_f32.cu; causal with T != S, GQA and
+             MQA, a full one, and 257 not a multiple of 8), each within
+             its dtype's gate and printed beside its chunk plan and its
+             design floor (the scores once per chunk, P.V twice in 16
+             bits, both three times as split TF32 in f32); two mixes of
              dtypes and one f64 case (the f32 route for their head_dim,
              the output in q's dtype, f32 for f64).  Each is timed
              beside the bound and, at T = S, beside SDPA in the same
@@ -371,6 +376,7 @@ non-zero before that line is printed.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -889,25 +895,34 @@ def phase_build() -> tuple[str, dict]:
     for source, name, text in found:
         say("build", f"{source} {names.get(name, name)}: ptxas{text}")
     n = len(_build._sources())
-    if n != 8 or any(f"flash_attention_{x}.cu" not in log
-                     for x in ("f32_sm90", "wide")):
-        raise AssertionError(f"expected eight kernel sources, built {n}")
-    # Tensor-core instructions in the SASS of each instantiation (one per
-    # padded head_dim, 32 .. 256, and per element type) of each tensor-core
-    # flash kernel: wgmma is HGMMA, mma.sync HMMA.  Both kernels are built
+    if n != 9 or any(f"flash_attention_{x}.cu" not in log
+                     for x in ("f32_sm90", "wide", "wide_f32")):
+        raise AssertionError(f"expected nine kernel sources, built {n}")
+    # Tensor-core instructions in the SASS of each instantiation of each
+    # flash kernel (the sm90 ones per padded head_dim, 32 .. 256, the wide
+    # ones per output chunk width the plan gives, and each per element
+    # type): wgmma is HGMMA, mma.sync HMMA.  Every flash kernel is built
     # on wgmma, so every instantiation must hold HGMMA; HMMA is printed
-    # only.  (The wide kernel runs on CUDA cores: its registers are above.)
-    widths = [32, 64, 96, 128, 160, 192, 224, 256]
-    for source, kernel, n_types in (
-            ("flash_attention_sm90.cu", "flash_attention_sm90_kernel", 2),
+    # only.
+    from repro_torch.kernels import flash_attention as flash_mod
+    sm90 = [32, 64, 96, 128, 160, 192, 224, 256]
+    chunks = list(range(flash_mod.WIDE_MAX_CHUNK // 2 + 32,
+                        flash_mod.WIDE_MAX_CHUNK + 1, 32))
+    for source, kernel, widths in (
+            ("flash_attention_sm90.cu", "flash_attention_sm90_kernel",
+             sm90 * 2),
             ("flash_attention_f32_sm90.cu",
-             "flash_attention_f32_sm90_kernel", 1)):
+             "flash_attention_f32_sm90_kernel", sm90),
+            ("flash_attention_wide.cu", "flash_attention_wide_kernel",
+             chunks * 2),
+            ("flash_attention_wide_f32.cu",
+             "flash_attention_wide_f32_kernel", chunks)):
         counts = {op: sass_counts(_build.library_path(), kernel, op)
                   for op in ("HGMMA", "HMMA")}
         names = demangle(counts["HGMMA"])
         width = {m: int(re.search(r"\((?:int\))?(\d+)", names[m]).group(1))
                  for m in names}
-        if sorted(width.values()) != sorted(widths * n_types):
+        if sorted(width.values()) != sorted(widths):
             raise AssertionError(f"{source}: instantiations "
                                  f"{sorted(width.values())}")
         for mangled in sorted(names, key=width.get):
@@ -942,14 +957,21 @@ def demangle(mangled) -> dict:
     return dict(zip(mangled, out.splitlines()))
 
 
+@functools.lru_cache(maxsize=None)
+def sass_of(library) -> str:
+    """``cuobjdump -sass`` of ``library``, dumped once for every check
+    that reads it."""
+    cuobjdump = (shutil.which("cuobjdump")
+                 or "/usr/local/cuda/bin/cuobjdump")
+    return subprocess.run([cuobjdump, "-sass", str(library)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+
+
 def sass_counts(library, kernel: str, opcode: str) -> dict:
     """``opcode`` instructions in the SASS of each kernel whose mangled
     name holds ``kernel``, by mangled name."""
-    cuobjdump = (shutil.which("cuobjdump")
-                 or "/usr/local/cuda/bin/cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(library)],
-                          capture_output=True, text=True, check=True,
-                          timeout=300).stdout
+    sass = sass_of(library)
     return {fn.split("\n", 1)[0].strip():
             len(re.findall(rf"\b{opcode}\b", fn))
             for fn in sass.split("Function : ")
@@ -963,11 +985,7 @@ def screen_sass_per_pair_sample(library) -> dict:
     pair-sample's sqrtf issues, counted without NOPs and divided by its
     MUFU.RSQs.  The slow paths of cosf and sqrtf lie outside it (a
     call), so this is the fast path's count: a floor per pair-sample."""
-    cuobjdump = (shutil.which("cuobjdump")
-                 or "/usr/local/cuda/bin/cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(library)],
-                          capture_output=True, text=True, check=True,
-                          timeout=300).stdout
+    sass = sass_of(library)
     out = {}
     for fn in sass.split("Function : ")[1:]:
         name = fn.split("\n", 1)[0]
@@ -2350,15 +2368,22 @@ def phase_flash(card: str) -> dict:
                 B, H, KV, T, S, hd, causal, nbytes, TC16_OPS_PER_S)
             floor = ""
         if route == "wide" and len(set(dts)) == 1:
-            # The wide kernel's own floor: the score once per output
-            # chunk of at most 256 columns and the weighted sum once, on
-            # CUDA cores in f32.
-            chunks = -(-hd // 256)
-            floor_ms, _ = flash_bound(
-                B, H, KV, T, S, hd, causal, nbytes, F32_OPS_PER_S,
-                ops_per_pair=2 * hd * chunks + 2 * hd)
-            floor = (f", design floor {floor_ms:.4f} ms (CUDA cores, "
-                     f"{chunks} chunks)")
+            # The wide kernels' own floor: the score once per output
+            # chunk (flash_attention.wide_plan) and the weighted sum
+            # twice in 16 bits (P's hi and lo), both three times as split
+            # TF32 in f32.
+            n_chunks, cw = flash_mod.wide_plan(hd)
+            if dts[0] == torch.float32:
+                per_pair, rate = 3 * (2 * hd * n_chunks + 2 * hd), \
+                    TF32_OPS_PER_S
+            else:
+                per_pair, rate = 2 * hd * n_chunks + 4 * hd, TC16_OPS_PER_S
+            floor_ms, _ = flash_bound(B, H, KV, T, S, hd, causal, nbytes,
+                                      rate, ops_per_pair=per_pair)
+            row["design_floor_ms"] = floor_ms
+            row["plan"] = [n_chunks, cw]
+            floor = (f", design floor {floor_ms:.4f} ms ({n_chunks} chunks "
+                     f"of {cw} columns)")
         lib = ("-" if row["library_ms"] is None
                else f"{row['library_ms']:.4f}")
         extra = floor
@@ -3269,11 +3294,12 @@ def first_nonfinite_superblock(cfg, params, batch: dict) -> dict:
 def flash_routes(flash: dict, lm: dict, lm_f16: dict, lm_f32: dict) -> dict:
     """Row 5's four routes for the final line: each one's source, its
     timed shape in phase 6 (stablelm's heads at T = S = 4096; the wide
-    route at hd 320, f16) with the numbers measured there, and its
-    launches on the forwards that go through it (phases 7, 7f, 7a and
-    7f's hd-320 model)."""
+    route at hd 320 in f16, and in f32 from its own source) with the
+    numbers measured there, and its launches on the forwards that go
+    through it (phases 7, 7f, 7a and 7f's hd-320 model)."""
     from repro_torch.kernels import _build
     top = "B=1 H=32 KV=8 T=4096 S=4096 hd=160 causal "
+    wide = "B=1 H=16 KV=4 T=1024 S=1024 hd=320 causal "
     spec = {
         "sm90": ("flash_attention_sm90.cu", top + "bfloat16",
                  lm["launches_by_route"]["sm90"]),
@@ -3281,20 +3307,25 @@ def flash_routes(flash: dict, lm: dict, lm_f16: dict, lm_f32: dict) -> dict:
                      lm_f16["launches_by_route"]["sm90_f16"]),
         "sm90_f32": ("flash_attention_f32_sm90.cu", top + "float32",
                      lm_f32["launches_by_route"]["sm90_f32"]),
-        "wide": ("flash_attention_wide.cu",
-                 "B=1 H=16 KV=4 T=1024 S=1024 hd=320 causal float16",
+        "wide": ("flash_attention_wide.cu", wide + "float16",
                  sum(r["launches_by_route"]["wide"]
                      for r in lm_f16["wide_hd"].values())),
     }
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_backend", "design_floor_ms", "plan")
     out = {}
     for route, (src, shape, launches) in spec.items():
         row = flash["per_shape"][shape]
         out[route] = {
             "source": os.path.relpath(_build.SRC_DIR / src, HERE),
             "shape": shape, "launches": launches,
-            **{k: row.get(k) for k in ("max_abs_err", "ms", "plain_ms",
-                                       "bound_ms", "bound_by", "library_ms",
-                                       "library_backend")}}
+            **{k: row[k] for k in keys if k in row}}
+    f32 = flash["per_shape"][wide + "float32"]
+    out["wide"].update({
+        "f32_source": os.path.relpath(
+            _build.SRC_DIR / "flash_attention_wide_f32.cu", HERE),
+        "f32_shape": wide + "float32",
+        **{f"f32_{k}": f32[k] for k in keys if k in f32}})
     return out
 
 
@@ -5732,13 +5763,6 @@ def main() -> int:
                  f"{torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card, screen_floor = phase_build()
-
-    from repro_torch.geometry.dem import SyntheticGlobeDEM
-    t0 = time.perf_counter()
-    globe = SyntheticGlobeDEM(cells_per_deg=120)
-    say("setup", f"GLOBE-resolution DEM generated in "
-                 f"{time.perf_counter() - t0:.2f}s")
     phase_s: dict = {}
 
     def timed(label: str, fn, *args):
@@ -5747,6 +5771,9 @@ def main() -> int:
         phase_s[label] = time.perf_counter() - t0
         return out
 
+    card, screen_floor = timed("0 build", phase_build)
+    from repro_torch.geometry.dem import SyntheticGlobeDEM
+    globe = timed("0 dem", lambda: SyntheticGlobeDEM(cells_per_deg=120))
     results = timed("1 kernels", phase_kernels, globe)
     screen = timed("2 screen kernels", phase_screen_kernels, screen_floor)
     launches, archive_dir, zip_shapes = timed("3 workflow", phase_workflow)
@@ -5771,14 +5798,12 @@ def main() -> int:
         timed("11 mesh", phase_mesh, train, card, dry)
     finally:
         stop_dryrun(dry)
+    top_shapes = timed("12 top shapes", phase_workflow_shapes, {
+        "zip workflow": zip_shapes, "store+screen workflow": screen_shapes,
+        "store+screen DAG": dag_shapes, **bench["shapes"],
+        "live store": serving["shapes"]})
     say("time", "wall s by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phase_s.items()))
-    top_shapes = phase_workflow_shapes({"zip workflow": zip_shapes,
-                                        "store+screen workflow":
-                                            screen_shapes,
-                                        "store+screen DAG": dag_shapes,
-                                        **bench["shapes"],
-                                        "live store": serving["shapes"]})
 
     from repro_torch.kernels import _build
     sources = {"track_interp": "track_interp.cu",

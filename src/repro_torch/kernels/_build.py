@@ -33,10 +33,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # -fmad=false keeps products out of fused adds, as the plain versions
 # compute them, for the kernels held bitwise to them.  The flash sources
 # are held to a tolerance instead and may fuse (the flag decides little
-# there: the tensor-core kernels' products run on the tensor cores, the
-# wide kernel's are explicit fmaf, and so is every exponent argument).
+# there: their products run on the tensor cores, and every exponent
+# argument is an explicit fmaf).
 FMA_SOURCES = ("flash_attention_sm90.cu", "flash_attention_f32_sm90.cu",
-               "flash_attention_wide.cu")
+               "flash_attention_wide.cu", "flash_attention_wide_f32.cu")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,6 +46,8 @@ _LL = ctypes.c_longlong
 # The flash entries: q, k, v, o, B, H, KV, T, S, hd, hd_out, causal,
 # scale, stream.
 _FLASH = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P)
+# The wide flash entries take the plan's chunk width cw after hd_out.
+_FLASH_WIDE = _FLASH[:11] + (_I,) + _FLASH[11:]
 
 #: C entry point -> argtypes (every pointer and the stream as c_void_p).
 SIGNATURES = {
@@ -58,9 +60,9 @@ SIGNATURES = {
     "flash_attention_bf16_sm90": _FLASH,
     "flash_attention_f16_sm90": _FLASH,
     "flash_attention_f32_sm90": _FLASH,
-    "flash_attention_wide_bf16": _FLASH,
-    "flash_attention_wide_f16": _FLASH,
-    "flash_attention_wide_f32": _FLASH,
+    "flash_attention_wide_bf16": _FLASH_WIDE,
+    "flash_attention_wide_f16": _FLASH_WIDE,
+    "flash_attention_wide_f32": _FLASH_WIDE,
     "launch_floor": (_I, _I, _I, _P),
 }
 

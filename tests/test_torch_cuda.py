@@ -998,13 +998,15 @@ def test_flash_attention_sm90_f16_route(dev, hd, T, S, causal):
 @pytest.mark.parametrize("T,S,causal", [(200, 200, True), (130, 333, True),
                                         (300, 111, True), (96, 160, False)],
                          ids=["T=S", "T<S", "T>S", "full"])
-@pytest.mark.parametrize("hd", [257, 320, 576, 1024])
+@pytest.mark.parametrize("hd", [257, 264, 320, 384, 576, 768, 1024])
 def test_flash_attention_wide_route(dev, hd, T, S, causal, dtype):
-    """Above head_dim 256 every dtype goes through the wide kernel: one
+    """Above head_dim 256 every dtype goes through the wide kernels: one
     launch on the "wide" route, the output in the input's dtype within
     one rounding of it (2e-5 in f32) of the plain version, rows with no
-    key exactly 0; 257 is not a multiple of 8, 576 and 1024 take three
-    and four output chunks."""
+    key exactly 0; 257 is not a multiple of 8 (zero-padded to 264 in 16
+    bits and 260 in f32), and the chunk plan's edges: 264 and 320 take
+    two chunks of 160 columns, 384 two of 192, 576 three of 192, 768
+    three of 256 and 1024 four."""
     from repro_torch.kernels import flash_attention as flash_mod
     q, k, v = _qkv(dev, 2, 8, 2, T, S, hd, seed=hd + T + S, dtype=dtype)
     got = _one_launch_on(flash_mod, "wide",
@@ -1018,6 +1020,62 @@ def test_flash_attention_wide_route(dev, hd, T, S, causal, dtype):
         assert not got[:, :, :T - S].any()
 
 
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16,
+                                   torch.float32],
+                         ids=["f16", "bf16", "f32"])
+@pytest.mark.parametrize("hd", [2048, 4100])
+def test_flash_attention_wide_route_has_no_upper_head_dim(dev, hd, dtype):
+    """head_dim 2048 (eight chunks of 256) and 4100 (not a multiple of 8:
+    zero-padded in 16 bits; seventeen chunks) at a small T < S, causal,
+    GQA 2:1: one launch on the "wide" route within the dtype's gate."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    q, k, v = _qkv(dev, 1, 4, 2, 70, 90, hd, seed=hd, dtype=dtype)
+    got = _one_launch_on(flash_mod, "wide",
+                         lambda: flash_mod.flash_attention(q, k, v))
+    assert got.dtype == dtype and got.shape == (1, 4, 70, hd)
+    rtol, atol = FLASH_GATES[dtype]
+    torch.testing.assert_close(got.float(), ref.flash_attention_ref(q, k, v),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16,
+                                   torch.float32],
+                         ids=["f16", "bf16", "f32"])
+def test_flash_attention_wide_takes_views_and_unaligned_bases(dev, dtype):
+    """TMA and cp.async read 16-byte rows from 16-byte-aligned bases: on
+    the wide route, contiguous views that start one element in (hd 320)
+    and unaligned views of hd 257 (zero-padded as well) are copied by the
+    wrapper, the attention layer's transposed views go through
+    ops.flash_attention; each is one "wide" launch within the dtype's
+    gate, and the caller's tensors keep their values and strides."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import ops
+    rtol, atol = FLASH_GATES[dtype]
+    g = torch.Generator(device=dev).manual_seed(9)
+    for hd in (320, 257):
+        shapes = ((1, 4, 70, hd), (1, 2, 90, hd), (1, 2, 90, hd))
+        q, k, v = (torch.randn(math.prod(s) + 1, generator=g, device=dev)
+                   .to(dtype)[1:].view(s) for s in shapes)
+        assert q.data_ptr() % 16 and q.is_contiguous()
+        kept = [x.clone() for x in (q, k, v)]
+        got = _one_launch_on(flash_mod, "wide",
+                             lambda: flash_mod.flash_attention(q, k, v))
+        for x, y in zip((q, k, v), kept):
+            assert torch.equal(x, y)
+        torch.testing.assert_close(got.float(),
+                                   ref.flash_attention_ref(q, k, v),
+                                   rtol=rtol, atol=atol)
+    q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2)
+               for x in _qkv(dev, 2, 8, 2, 96, 96, 320, seed=3, dtype=dtype))
+    assert not q.is_contiguous()
+    strides = [x.stride() for x in (q, k, v)]
+    got = _one_launch_on(flash_mod, "wide",
+                         lambda: ops.flash_attention(q, k, v))
+    assert [x.stride() for x in (q, k, v)] == strides
+    torch.testing.assert_close(got.float(), ref.flash_attention_ref(q, k, v),
+                               rtol=rtol, atol=atol)
+
+
 def test_flash_attention_wide_grid_past_65535_blocks(dev):
     # 64-row q tiles x B * H x 2 output chunks = 1 * 300 * 120 * 2 = 72000
     # CTAs on grid.x.
@@ -1028,6 +1086,49 @@ def test_flash_attention_wide_grid_past_65535_blocks(dev):
                          lambda: flash_mod.flash_attention(q, k, v))
     torch.testing.assert_close(got.float(), ref.flash_attention_ref(q, k, v),
                                rtol=2 ** -11, atol=1e-5)
+
+
+def test_flash_attention_wide_f32_grid_past_65535_blocks(dev):
+    # The f32 kernel's 128-row q tiles: 2 tiles (T = 130) x B * H x 2
+    # output chunks = 2 * 150 * 120 * 2 = 72000 CTAs on grid.x.
+    from repro_torch.kernels import flash_attention as flash_mod
+    q, k, v = _qkv(dev, 150, 120, 4, 130, 130, 257, seed=6,
+                   dtype=torch.float32)
+    got = _one_launch_on(flash_mod, "wide",
+                         lambda: flash_mod.flash_attention(q, k, v))
+    torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16,
+                                   torch.float32],
+                         ids=["f16", "bf16", "f32"])
+def test_flash_attention_wide_entries_take_the_callers_chunk_width(dev,
+                                                                   dtype):
+    """The chunk plan has one owner, flash_attention.wide_plan: the wide
+    C entries launch the chunk width they are given (every compiled one,
+    160 to 256, is right at hd 320) and refuse any other, leaving the
+    output untouched."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as flash_mod
+    B, H, KV, T, S, hd = 1, 4, 2, 70, 90, 320
+    q, k, v = _qkv(dev, B, H, KV, T, S, hd, seed=4, dtype=dtype)
+    want = ref.flash_attention_ref(q, k, v)
+    rtol, atol = FLASH_GATES[dtype]
+    entry = getattr(_build.lib(), flash_mod._KERNELS[dtype][2])
+    assert flash_mod.wide_plan(hd) == (2, 160)
+    for cw in (160, 192, 224, 256, 128, 170, 288):
+        out = torch.full_like(q, 7.0)
+        rc = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   B, H, KV, T, S, hd, hd, cw, 1, hd ** -0.5,
+                   _build.stream_of(q))
+        torch.cuda.synchronize()
+        if cw in (160, 192, 224, 256):
+            assert rc == 0
+            torch.testing.assert_close(out.float(), want, rtol=rtol,
+                                       atol=atol)
+        else:
+            assert rc != 0 and bool((out == 7.0).all())
 
 
 @pytest.mark.parametrize("names,hd,route", [
