@@ -5693,14 +5693,16 @@ def _widened(tree):
 def _device_busy(prof, averages=None) -> dict:
     """Device time (ms) by kernel name from a torch.profiler run (or its
     ``key_averages()``, ``averages``, where the caller has them).  The
-    MoE stages' ``record_function`` ranges, which the profiler may also
-    show on the device's timeline, are not kernels and are left out."""
+    model's stage ranges (``obs.lm.STAGES``, the MoE stages among them),
+    which the profiler may also show on the device's timeline, are not
+    kernels and are left out."""
     import torch
+    from repro_torch.obs import lm
     cuda = torch.autograd.DeviceType.CUDA
     return {e.key: getattr(e, "self_device_time_total", 0.0) / 1e3
             for e in (averages or prof.key_averages())
             if getattr(e, "device_type", None) == cuda
-            and e.key not in MOE_STAGES}
+            and e.key not in lm.STAGES}
 
 
 def _stage_device_ms(prof, averages=None) -> dict:

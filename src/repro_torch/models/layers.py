@@ -15,9 +15,9 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from repro_torch.kernels import ops as kops
+from repro_torch.obs import lm
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -254,6 +254,7 @@ def einsum(eq: str, a: torch.Tensor, b: torch.Tensor,
     means an f32 product; otherwise the product runs in the operands'
     common dtype and the result is cast to ``out``."""
     dt = F32 if out == F32 else torch.promote_types(a.dtype, b.dtype)
+    lm.count_einsum(eq, a, b, dt)
     if is_dtensor(a) or is_dtensor(b):
         return _einsum_sharded(eq, a.to(dt), b.to(dt)).to(out)
     if a.dtype != dt or b.dtype != dt:
@@ -363,10 +364,11 @@ def _reduce_partial(x):
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
-    xf = x.to(F32)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps)
-    return (y * scale.to(F32)).to(x.dtype)
+    with lm.stage("norm"):
+        xf = x.to(F32)
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(var + eps)
+        return (y * scale.to(F32)).to(x.dtype)
 
 
 def activation_fn(name: str):
@@ -422,25 +424,27 @@ def attention_train(x: torch.Tensor, p: dict, *, n_heads: int, n_kv: int,
     B, T, D = x.shape
     pos = torch.arange(T, dtype=torch.int32, device=x.device)
     pos = pos[None].expand(B, T)
-    q = einsum("btd,dhk->bthk", x, p["wq"], x.dtype)
-    k = einsum("btd,dhk->bthk", x, p["wk"], x.dtype)
-    v = einsum("btd,dhk->bthk", x, p["wv"], x.dtype)
-    q = apply_rope(q, pos, theta)
-    k = apply_rope(k, pos, theta)
+    with lm.stage("attn.qkv"):
+        q = einsum("btd,dhk->bthk", x, p["wq"], x.dtype)
+        k = einsum("btd,dhk->bthk", x, p["wk"], x.dtype)
+        v = einsum("btd,dhk->bthk", x, p["wv"], x.dtype)
+    with lm.stage("attn.rope"):
+        q = apply_rope(q, pos, theta)
+        k = apply_rope(k, pos, theta)
 
-    if impl == "flash" and window is None:
-        o = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                 v.transpose(1, 2), causal=True)
-        o = o.transpose(1, 2).to(x.dtype)
+    with lm.stage("attn.core"):
+        if impl == "flash" and window is None:
+            o = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                     v.transpose(1, 2), causal=True)
+            o = o.transpose(1, 2).to(x.dtype)
+        elif is_dtensor(q) and any(d == 2 for _, d in sharding_dims(q)):
+            o = _attention_heads_sharded(q, k, v, n_heads // n_kv, head_dim,
+                                         window)
+        else:
+            o = same_local(lambda q, k, v: _attention_grouped(
+                q, k, v, n_heads, n_kv, head_dim, window), q, k, v)
+    with lm.stage("attn.out"):
         return einsum("bthk,hkd->btd", o, p["wo"], x.dtype)
-
-    if is_dtensor(q) and any(d == 2 for _, d in sharding_dims(q)):
-        o = _attention_heads_sharded(q, k, v, n_heads // n_kv, head_dim,
-                                     window)
-    else:
-        o = same_local(lambda q, k, v: _attention_grouped(
-            q, k, v, n_heads, n_kv, head_dim, window), q, k, v)
-    return einsum("bthk,hkd->btd", o, p["wo"], x.dtype)
 
 
 def _attention_grouped(q, k, v, n_heads: int, n_kv: int, head_dim: int,
@@ -554,12 +558,13 @@ def mlp(x: torch.Tensor, p: dict, activation: str) -> torch.Tensor:
     """MLP. Gated (wi: (D,2,F)): act(x@wi0) * (x@wi1) @ wo.
     Plain (wi: (D,1,F)): act(x@wi0) @ wo — nemotron/granite/musicgen."""
     act = activation_fn(activation)
-    h = einsum("btd,dcf->btcf", x, p["wi"], F32)   # f32 into the gate
-    if p["wi"].shape[1] == 2:
-        h = act(h[:, :, 0]) * h[:, :, 1]
-    else:
-        h = act(h[:, :, 0])
-    return einsum("btf,fd->btd", h.to(x.dtype), p["wo"], x.dtype)
+    with lm.stage("mlp"):
+        h = einsum("btd,dcf->btcf", x, p["wi"], F32)   # f32 into the gate
+        if p["wi"].shape[1] == 2:
+            h = act(h[:, :, 0]) * h[:, :, 1]
+        else:
+            h = act(h[:, :, 0])
+        return einsum("btf,fd->btd", h.to(x.dtype), p["wo"], x.dtype)
 
 
 def _largest_divisor_leq(n: int, cap: int) -> int:
@@ -677,9 +682,12 @@ def moe(x: torch.Tensor, p: dict, *, n_experts: int, top_k: int,
     (DTensors whole): the same f32 products of the same operands as one
     product over all experts.
 
-    The stages run under ``torch.profiler.record_function`` labels
+    The stages run under :func:`repro_torch.obs.lm.stage` ranges
     (``moe.route``, ``moe.dispatch``, ``moe.experts``, ``moe.combine``)
-    so that a profile splits the layer's device time by stage.
+    so that a profile splits the layer's device time by stage, and the
+    routing is counted there (``obs.lm.count_moe``: G * Sg * K choices,
+    G * E * capacity expert slots, the choices kept); both record only
+    while a profiler (or ``obs.lm.recording``) does.
     """
     B, T, D = x.shape
     E = n_experts
@@ -688,9 +696,10 @@ def moe(x: torch.Tensor, p: dict, *, n_experts: int, top_k: int,
     G = S // gs
     xg = x.reshape(G, gs, D)
     cap = max(int(capacity_factor * top_k * gs / E), 1)
-    with record_function("moe.route"):
+    with lm.stage("moe.route"):
         gate_vals, gate_idx, pos, keep = _route(xg, p["router"], top_k, cap)
-    with record_function("moe.dispatch"):
+        lm.count_moe(G * gs * top_k, G * E * cap, keep)
+    with lm.stage("moe.dispatch"):
         onehot = F.one_hot(gate_idx, E).to(x.dtype)           # (G,Sg,K,E)
         pos_oh = F.one_hot(torch.where(keep, pos, cap).long(),
                            cap + 1).to(x.dtype)[..., :cap]     # (G,Sg,K,c)
@@ -699,7 +708,7 @@ def moe(x: torch.Tensor, p: dict, *, n_experts: int, top_k: int,
                         x.dtype)
         comb = disp * gate_e[..., None]
         xin = einsum("gsec,gsd->gecd", disp, xg, F32).to(x.dtype)
-    with record_function("moe.experts"):
+    with lm.stage("moe.experts"):
         # Expert FFN as 3-D batched products over (E, G*cap, ...), a
         # chunk of experts at a time.
         z = p["wi"].shape[2]
@@ -716,6 +725,6 @@ def moe(x: torch.Tensor, p: dict, *, n_experts: int, top_k: int,
                               for a, b, c in zip(xe.split(ec), wi.split(ec),
                                                  p["wo"].split(ec))])
         eout = eout.reshape(E, G, cap, D).transpose(0, 1)      # (G,E,c,D)
-    with record_function("moe.combine"):
+    with lm.stage("moe.combine"):
         yf = einsum("gsec,gecd->gsd", comb, eout, F32).to(x.dtype)
     return yf.reshape(B, T, D)

@@ -37,6 +37,7 @@ from repro_torch.distribution.collectives import all_reduce
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
+from repro_torch.obs import lm
 
 F32 = torch.float32
 
@@ -364,13 +365,16 @@ def _apply_sublayer(cfg: ArchConfig, kind: str, is_moe: bool, p: dict,
                               window=cfg.sliding_window,
                               impl=cfg.attention_impl)
     elif kind == "mamba":
-        h = S.mamba_train(h, p["mixer"], d_state=cfg.d_state)
+        with lm.stage("mamba"):
+            h = S.mamba_train(h, p["mixer"], d_state=cfg.d_state)
     elif kind == "rwkv6":
-        h = S.rwkv6_time_mix(h, p["mixer"], head_dim=cfg.rwkv_head_dim)
+        with lm.stage("rwkv6.time"):
+            h = S.rwkv6_time_mix(h, p["mixer"], head_dim=cfg.rwkv_head_dim)
     x = x + L.as_batch(h)
     h = L.rms_norm(x, p["norm2"], cfg.rms_eps)
     if kind == "rwkv6":
-        h = S.rwkv6_channel_mix(h, p["ffn"])
+        with lm.stage("rwkv6.channel"):
+            h = S.rwkv6_channel_mix(h, p["ffn"])
     elif is_moe:
         h = _moe(cfg, p["ffn"], h)
     else:
@@ -448,13 +452,17 @@ def forward_trunk(cfg: ArchConfig, params: dict, x: torch.Tensor,
 def encode_inputs(cfg: ArchConfig, params: dict,
                   batch: dict) -> torch.Tensor:
     """Token embedding, or the stubbed modality frontend's embeddings."""
-    if L.is_dtensor(params["embed"]):
-        return _encode_sharded(cfg, params, batch)
-    dev = params["embed"].device
-    if cfg.frontend is not None:
-        return torch.as_tensor(batch["embeds"], device=dev).to(_adtype(cfg))
-    tokens = torch.as_tensor(batch["tokens"], device=dev)
-    return params["embed"][tokens.long()].to(_adtype(cfg))
+    with lm.stage("embed"):
+        dev = params["embed"].device
+        if L.is_dtensor(params["embed"]):
+            x = _encode_sharded(cfg, params, batch)
+        elif cfg.frontend is not None:
+            x = torch.as_tensor(batch["embeds"], device=dev).to(_adtype(cfg))
+        else:
+            tokens = torch.as_tensor(batch["tokens"], device=dev)
+            x = params["embed"][tokens.long()].to(_adtype(cfg))
+        lm.count_tokens(x.shape)
+        return x
 
 
 def _encode_sharded(cfg: ArchConfig, params: dict,
@@ -481,18 +489,19 @@ def _unembed(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     same f32 products of the same operands as one product."""
     x = L.rms_norm(L.as_batch(x), L.gather_param(params["final_norm"]),
                    cfg.rms_eps)
-    unembed = (L.gather_param(params["embed"]).T if cfg.tie_embeddings
-               else L.gather_param(params["unembed"]))
-    D, V = unembed.shape
-    step = vocab_per_chunk(D, V)
-    if step >= V or L.is_dtensor(x) or L.is_dtensor(unembed):
-        return L.einsum("btd,dv->btv", x, unembed, F32)
-    x = x.to(F32)
-    logits = torch.empty(x.shape[:-1] + (V,), dtype=F32, device=x.device)
-    for v0 in range(0, V, step):
-        logits[..., v0:v0 + step] = L.einsum(
-            "btd,dv->btv", x, unembed[:, v0:v0 + step], F32)
-    return logits
+    with lm.stage("unembed"):
+        unembed = (L.gather_param(params["embed"]).T if cfg.tie_embeddings
+                   else L.gather_param(params["unembed"]))
+        D, V = unembed.shape
+        step = vocab_per_chunk(D, V)
+        if step >= V or L.is_dtensor(x) or L.is_dtensor(unembed):
+            return L.einsum("btd,dv->btv", x, unembed, F32)
+        x = x.to(F32)
+        logits = torch.empty(x.shape[:-1] + (V,), dtype=F32, device=x.device)
+        for v0 in range(0, V, step):
+            logits[..., v0:v0 + step] = L.einsum(
+                "btd,dv->btv", x, unembed[:, v0:v0 + step], F32)
+        return logits
 
 
 def forward(cfg: ArchConfig, params: dict, batch: dict,

@@ -19,7 +19,21 @@ Entry points:
   * :func:`to_chrome_trace` / :func:`from_chrome_trace` — Perfetto
     export and its inverse;
   * :func:`write_trace_files` — the one-call exporter the workflow and
-    bench CLIs use.
+    bench CLIs use;
+  * :mod:`repro_torch.obs.lm` — ranges and counters of the LM forward
+    (stages from ``lm.STAGES``, the positions embedded, product
+    operations by dtype, the MoE's choices, slots and kept choices),
+    recorded only while a ``torch.profiler`` records (or inside
+    ``lm.recording()``).
+
+One package, two clocks.  ``Tracer`` stamps host spans on
+``time.monotonic`` (or the sim's virtual clock): the runtime, the store
+and the workflow are paced by the host, and their spans must be cheap
+enough to leave on.  The LM's time is the card's: its kernels run
+behind the host, so only the profiler's Kineto timeline, which holds
+the kernels beside the host ranges that launched them, can attribute
+it, and ``obs.lm`` ranges live there and cost nothing when no profiler
+records.
 """
 
 from __future__ import annotations
